@@ -1,0 +1,151 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with :mod:`ctypes` (no
+PyTorch headers: the build takes seconds, not minutes).  The library lands
+in ``build/kernels/`` beside the package, named by a hash of the sources,
+so an edited ``.cu`` rebuilds and an unchanged tree reuses its build.
+
+The build runs at the first kernel launch, never at import: importing the
+package needs no toolchain.  Every C entry point returns the value of
+``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+
+``LAUNCHES`` holds one plain integer per kernel.  Each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show which
+kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+KERNEL_NAMES = ("relpos_attention", "mlp_gelu", "layernorm", "ms_deform_attn")
+LAUNCHES = {name: 0 for name in KERNEL_NAMES}
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = None  # wall time of the build this process ran (None: reused)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # (q, k, v, rel_h, rel_w, out, BH, N, D, kh, kw, scale, stream)
+    "ik_relpos_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # (a, w, bias, out, M, N, K, gelu, stream)
+    "ik_linear_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, y, scale, bias, sum_out, out, rows, C, eps, is_bf16, stream)
+    "ik_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # (value, level_shapes, level_starts, n_levels, loc, attn, out,
+    #  B, S, Lq, heads, n_points, is_bf16, stream)
+    "ik_ms_deform_attn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernel library if no build of these sources exists;
+    returns its path."""
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"libinklayer_kernels_{_source_hash()}.so")
+    if os.path.exists(path):
+        return path
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr)
+    os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.ik_error_string.argtypes = [ctypes.c_int]
+            handle.ik_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        msg = lib().ik_error_string(status).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {status} ({msg})")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,66 @@
+"""CLI of the PyTorch/CUDA port, detect + segment:
+
+    python -m inklayer_tpu_torch.main --img <path> | --dir <path>
+                                      [--out_dir ./output] [--config cfg.json]
+
+Same input flags as the JAX package's ``main.py``.  ``--no_intermediate``
+and ``--inpaint`` are refused until the stages they need are ported.
+Parameters are seeded placeholders (no checkpoints ship with the repo).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="InkLayer detect + segment on PyTorch/CUDA")
+    parser.add_argument("--img", type=str, default=None)
+    parser.add_argument("--dir", type=str, default=None,
+                        help="directory of input images (*.png, *.jpg)")
+    parser.add_argument("--out_dir", type=str, default="./output")
+    parser.add_argument("--no_intermediate", action="store_true")
+    parser.add_argument("--inpaint", action="store_true")
+    parser.add_argument("--config", type=str, default=None,
+                        help="JSON PipelineConfig path")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    if args.no_intermediate:
+        parser.error("--no_intermediate needs the mask-cleaning, NMS, depth "
+                     "and refine stages, which are not ported yet")
+    if args.inpaint:
+        parser.error("--inpaint needs the refine and diffusion stages, which "
+                     "are not ported yet")
+    if args.img is None and args.dir is None:
+        parser.error("provide --img or --dir")
+
+    import torch
+
+    from inklayer_tpu_torch.config import PipelineConfig, load_config
+    from inklayer_tpu_torch.build import build_pipeline
+
+    cfg = load_config(args.config) if args.config else PipelineConfig()
+    dtype = torch.bfloat16 if args.device.startswith("cuda") else torch.float32
+    pipeline = build_pipeline(cfg, device=args.device, dtype=dtype)
+    if args.img is not None:
+        paths = [args.img]
+    else:
+        paths = sorted(glob.glob(os.path.join(args.dir, "*.png"))
+                       + glob.glob(os.path.join(args.dir, "*.jpg")))
+    if not paths:
+        print("no input images found", file=sys.stderr)
+        sys.exit(1)
+    for p in paths:
+        out = pipeline.run(p, args.out_dir)
+        print(f"{p} -> {out}")
+        print("stage times (s):", {k: round(v, 3) for k, v in
+                                   pipeline.stage_times.items()})
+
+
+if __name__ == "__main__":
+    main()

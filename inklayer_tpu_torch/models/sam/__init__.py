@@ -1,0 +1,3 @@
+from inklayer_tpu_torch.models.sam.sam import Sam, SamPredictor
+
+__all__ = ["Sam", "SamPredictor"]

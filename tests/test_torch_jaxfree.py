@@ -1,0 +1,44 @@
+"""The port imports no jax or flax, and nothing of the JAX package: every
+module of inklayer_tpu_torch imports in a fresh interpreter where jax and
+flax are blocked, and no inklayer_tpu module is loaded after it."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import inklayer_tpu_torch
+names = ["inklayer_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(inklayer_tpu_torch.__path__,
+                                          "inklayer_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "jaxlib", "inklayer_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 25  # every module was walked
+
+
+def test_chip_smoke_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['flax'] = None;"
+            " sys.modules['inklayer_tpu'] = None; import chip_smoke;"
+            " import inklayer_tpu_torch.build, inklayer_tpu_torch.main")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

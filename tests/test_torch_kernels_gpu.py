@@ -1,0 +1,101 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card.  Marked ``gpu``: without a CUDA device every test
+skips (the CPU tests cover the plain versions' parity with the JAX
+package).  Run on a card with
+
+    python -m pytest tests/test_torch_kernels_gpu.py -q
+
+Inputs are seeded bf16; the plain version runs in fp32 on the same card
+with TF32 off.  Tolerance atol = rtol = 2e-2 (bf16 outputs; the attention
+rounds its probabilities and the MLP its hidden activation to bf16).
+"""
+
+import pytest
+import torch
+
+from inklayer_tpu_torch import _kernels
+from inklayer_tpu_torch.ops import attention, deformable, mlp, norm
+
+pytestmark = pytest.mark.gpu
+TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.fixture()
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, std=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda") * std).to(
+        torch.bfloat16)
+
+
+def _f32(ts):
+    return [t.float() for t in ts]
+
+
+@pytest.mark.parametrize("bh,kh,d", [(8, 14, 80), (4, 64, 80), (6, 8, 64),
+                                     (2, 48, 80)])
+def test_relpos_attention_kernel(gen, bh, kh, d):
+    n = kh * kh
+    args = [_randn(gen, bh, n, d) for _ in range(3)] + \
+        [_randn(gen, bh, n, kh) for _ in range(2)]
+    before = _kernels.LAUNCHES["relpos_attention"]
+    got = attention.relpos_attention(*args, d ** -0.5)
+    assert _kernels.LAUNCHES["relpos_attention"] == before + 1
+    want = attention.relpos_attention_plain(*_f32(args), d ** -0.5)
+    torch.testing.assert_close(got.float(), want, **TOL)
+
+
+@pytest.mark.parametrize("t,c,h", [(512, 128, 512), (1024, 1280, 5120)])
+def test_mlp_gelu_kernel(gen, t, c, h):
+    args = [_randn(gen, t, c), _randn(gen, h, c, std=c ** -0.5),
+            _randn(gen, h, std=0.1), _randn(gen, c, h, std=h ** -0.5),
+            _randn(gen, c, std=0.1)]
+    got = mlp.mlp_gelu(*args)
+    torch.testing.assert_close(got.float(), mlp.mlp_gelu_plain(*_f32(args)),
+                               **TOL)
+
+
+@pytest.mark.parametrize("rows,c", [(512, 96), (777, 1280), (1000, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layernorm_kernel(gen, rows, c, dtype):
+    x, y = (_randn(gen, rows, c).to(dtype) for _ in range(2))
+    sc = (1 + _randn(gen, c, std=0.1)).to(dtype)
+    bi = _randn(gen, c, std=0.1).to(dtype)
+    torch.testing.assert_close(norm.layernorm_2d(x, sc, bi).float(),
+                               norm.layernorm_2d_plain(*_f32([x, sc, bi])),
+                               **TOL)
+    s, o = norm.layernorm_residual_2d(x, y, sc, bi)
+    s_w, o_w = norm.layernorm_residual_2d_plain(*_f32([x, y, sc, bi]))
+    torch.testing.assert_close(s.float(), s_w, **TOL)
+    torch.testing.assert_close(o.float(), o_w, **TOL)
+
+
+@pytest.mark.parametrize("lq", [37, 900])
+def test_ms_deform_attn_kernel(gen, lq):
+    shapes = ((20, 24), (10, 12), (5, 6), (3, 3))
+    s = sum(h * w for h, w in shapes)
+    value = _randn(gen, 2, s, 8, 32)
+    loc = torch.rand(2, lq, 8, 4, 4, 2, generator=gen, device="cuda") * 1.4 - 0.2
+    att = torch.softmax(torch.randn(2, lq, 8, 16, generator=gen,
+                                    device="cuda"), -1).reshape(2, lq, 8, 4, 4)
+    got = deformable.ms_deform_attn(value, shapes, loc, att)
+    want = deformable.ms_deform_attn_plain(value.float(), shapes, loc, att)
+    torch.testing.assert_close(got.float(), want, **TOL)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _randn(gen, 2, 36, 32)  # head_dim 32: no kernel instance
+    r = _randn(gen, 2, 36, 6)
+    with pytest.raises(ValueError):
+        attention.relpos_attention(q, q, q, r, r, 0.2)
+    x = _randn(gen, 100, 128)  # rows % 128 != 0
+    w = _randn(gen, 512, 128)
+    with pytest.raises(ValueError):
+        mlp.mlp_gelu(x, w, _randn(gen, 512), _randn(gen, 128, 512),
+                     _randn(gen, 128))

@@ -1,0 +1,143 @@
+"""Port parity: the detect+segment slice as a whole.
+
+The JAX InkLayerPipeline is built on TINY_PIPE (tests/test_pipeline.py)
+with box_threshold 0.0 and random detector / SAM params; the port runs
+the same params, carried over by the bridge, on the fixed sketch of
+tests/test_self_golden.py.  The port writes the first half of the output
+contract; each of its files is held against the JAX run's:
+
+* bboxes.json: same count, boxes within 1 px (int truncation of f32
+  corners), scores atol = rtol = 1e-3;
+* masks/: each mask IoU >= 0.99 with its JAX counterpart;
+* segmented_sketch.png: the JAX colouring of the port's masks, exactly;
+* input.png: byte-identical (both copy the source PNG).
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from inklayer_tpu.build import build_pipeline as jax_build_pipeline
+from inklayer_tpu_torch.models.gdino import GDinoDetector
+from inklayer_tpu_torch.models.sam import SamPredictor
+from inklayer_tpu_torch.pipeline.runner import InkLayerPipeline
+from tests.test_pipeline import TINY_PIPE
+from tests.test_self_golden import _sketch
+from tests.test_torch_gdino import gdino_pair
+from tests.test_torch_sam import sam_pair
+
+PORT_OUTPUTS = ["bboxes.json", "bboxes.png", "input.png", "masks",
+                "segmented_sketch.png"]
+
+
+def _masks(out_dir):
+    d = os.path.join(out_dir, "masks")
+    names = sorted(os.listdir(d), key=lambda n: int(n[5:-4]))
+    return names, [np.asarray(Image.open(os.path.join(d, n)).convert("L")) > 127
+                   for n in names]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    cfg = dataclasses.replace(
+        TINY_PIPE,
+        gdino=dataclasses.replace(TINY_PIPE.gdino, box_threshold=0.0))
+    _, g_params, g_model = gdino_pair(cfg.gdino)
+    # std 0.5: masks that cover part of the image (std 0.2 fills them all)
+    _, s_params, s_model = sam_pair(cfg.sam, std=0.5)
+    jax_pipe = jax_build_pipeline(cfg)
+    jax_pipe.detector.params = g_params
+    jax_pipe.sam.params = s_params
+    port = InkLayerPipeline(GDinoDetector(g_model),
+                            SamPredictor(s_model,
+                                         box_capacity=cfg.gdino.max_boxes),
+                            cfg)
+    tmp = tmp_path_factory.mktemp("slice")
+    sketch = _sketch(tmp)
+    return (jax_pipe.run(sketch, str(tmp / "jax")),
+            port.run(sketch, str(tmp / "torch")), cfg)
+
+
+def test_port_writes_the_detect_segment_outputs(runs):
+    _, port_dir, _ = runs
+    assert sorted(os.listdir(port_dir)) == PORT_OUTPUTS
+
+
+def test_bboxes_json_matches_jax(runs):
+    jax_dir, port_dir, cfg = runs
+    with open(os.path.join(jax_dir, "bboxes.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(port_dir, "bboxes.json")) as f:
+        got = json.load(f)
+    assert set(got) == set(want) == {"bboxes", "scores"}
+    assert len(got["bboxes"]) == len(want["bboxes"]) == cfg.gdino.max_boxes
+    w, h = Image.open(os.path.join(port_dir, "input.png")).size
+    px = np.asarray([w, h, w, h], np.float64)
+    diff = np.abs(np.asarray(got["bboxes"]) - np.asarray(want["bboxes"])) * px
+    assert diff.max() <= 1.0 + 1e-6, diff.max()
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-3,
+                               rtol=1e-3)
+
+
+def test_masks_match_jax_by_iou(runs):
+    jax_dir, port_dir, _ = runs
+    j_names, j_masks = _masks(jax_dir)
+    t_names, t_masks = _masks(port_dir)
+    assert t_names == j_names and len(t_names) > 0
+    assert any(0.05 < m.mean() < 0.95 for m in t_masks)  # not all trivial
+    for name, a, b in zip(t_names, t_masks, j_masks):
+        assert a.shape == b.shape == (128, 128)
+        union = (a | b).sum()
+        iou = 1.0 if union == 0 else (a & b).sum() / union
+        assert iou >= 0.99, (name, iou)
+
+
+def test_segmented_sketch_colours_the_port_masks(runs):
+    """segmented_sketch.png is the JAX package's per-mask colouring of the
+    sketch by the port's own masks, bit for bit."""
+    from inklayer_tpu.ops.color import color_sketch_by_masks
+
+    _, port_dir, _ = runs
+    _, masks = _masks(port_dir)
+    image = np.asarray(Image.open(os.path.join(port_dir, "input.png"))
+                       .convert("RGB"))
+    got = np.asarray(Image.open(os.path.join(port_dir,
+                                             "segmented_sketch.png")))
+    np.testing.assert_array_equal(got, color_sketch_by_masks(image, masks))
+
+
+def test_input_png_is_a_byte_copy(runs):
+    jax_dir, port_dir, _ = runs
+    with open(os.path.join(jax_dir, "input.png"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(port_dir, "input.png"), "rb") as f:
+        assert f.read() == want
+
+
+def test_device_busy_time_is_the_union_of_intervals():
+    from inklayer_tpu_torch.profiling import _union_us
+
+    assert _union_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+    assert _union_us([]) == 0.0
+
+
+def test_cli_runs_the_slice_and_refuses_unported_flags(tmp_path, capsys):
+    from inklayer_tpu.config import save_config
+    from inklayer_tpu_torch.main import main
+
+    cfg_path = str(tmp_path / "tiny.json")
+    save_config(TINY_PIPE, cfg_path)
+    sketch = _sketch(tmp_path)
+    for flag in ("--no_intermediate", "--inpaint"):
+        with pytest.raises(SystemExit) as exc:
+            main(["--img", sketch, flag])
+        assert exc.value.code == 2
+        assert "not ported yet" in capsys.readouterr().err
+    main(["--img", sketch, "--out_dir", str(tmp_path / "out"), "--config",
+          cfg_path, "--device", "cpu"])
+    assert sorted(os.listdir(tmp_path / "out" / "golden_sketch")) == \
+        PORT_OUTPUTS
