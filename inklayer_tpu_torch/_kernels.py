@@ -2,9 +2,11 @@
 
 All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into ONE
 shared library with a plain C interface, loaded with :mod:`ctypes` (no
-PyTorch headers: the build takes seconds, not minutes).  The library lands
-in ``build/kernels/`` beside the package, named by a hash of the sources,
-so an edited ``.cu`` rebuilds and an unchanged tree reuses its build.
+PyTorch headers: the build takes seconds, not minutes).  Each source
+compiles to an object in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links them.  The library lands in ``build/kernels/``
+beside the package, named by a hash of the sources, so an edited ``.cu``
+rebuilds and an unchanged tree reuses its build.
 
 The build runs at the first kernel launch, never at import: importing the
 package needs no toolchain.  Every C entry point returns the value of
@@ -31,9 +33,10 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
-KERNEL_NAMES = ("relpos_attention", "mlp_gelu", "layernorm", "ms_deform_attn")
+KERNEL_NAMES = ("relpos_attention", "mlp_gelu", "layernorm", "ms_deform_attn",
+                "clean_components", "connected_components", "flash_attention")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _lib = None
@@ -54,6 +57,12 @@ _SIGNATURES = {
     #  B, S, Lq, heads, n_points, is_bf16, stream)
     "ik_ms_deform_attn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P],
+    # (mask, labels, N, H, W, stream)
+    "ik_connected_components": [_P, _P, _I, _I, _I, _P],
+    # (mask, out, labels, stats, N, H, W, min_area, min_aspect, stream)
+    "ik_clean_components": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # (q, k, v, out, BH, N, D, scale, stream)
+    "ik_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 
@@ -103,17 +112,35 @@ def build(verbose: bool = False) -> str:
     path = os.path.join(BUILD_DIR, f"libinklayer_kernels_{_source_hash()}.so")
     if os.path.exists(path):
         return path
-    cu = [p for p in _sources() if p.endswith(".cu")]
+    nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr)
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+               "-I", CSRC_DIR, "-c", "-o", obj, src]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    errors, objs = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n{err}")
+        elif verbose:
+            print(err)
+        objs.append(obj)
+    if not errors:
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"nvcc link failed ({res.returncode}):\n"
+                          f"{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path

@@ -1,6 +1,6 @@
-"""Pipeline factory: build the detector and the SAM predictor with seeded
-placeholder parameters on an explicit device (port of
-:mod:`inklayer_tpu.build`, detect + segment).
+"""Pipeline factory: build the detector, the SAM predictor and the depth
+estimator with seeded placeholder parameters on an explicit device (port
+of :mod:`inklayer_tpu.build`, the default run).
 
 No checkpoints ship with the repository.  Placeholder params are a small
 random normal (std 0.02) drawn from a seeded ``torch.Generator`` on the
@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from inklayer_tpu_torch.config import PipelineConfig
+from inklayer_tpu_torch.models.depth import DepthAnythingV2, DepthEstimator
 from inklayer_tpu_torch.models.gdino import GDinoDetector, GroundingDINO
 from inklayer_tpu_torch.models.sam import Sam, SamPredictor
 from inklayer_tpu_torch.nn.layers import LayerNorm
@@ -58,10 +59,19 @@ def build_sam(cfg: PipelineConfig, device, dtype: torch.dtype,
     return SamPredictor(model, box_capacity=cfg.gdino.max_boxes)
 
 
+def build_depth(cfg: PipelineConfig, device, dtype: torch.dtype,
+                seed: int = 0) -> DepthEstimator:
+    model = init_placeholder_params(DepthAnythingV2(cfg.depth), seed + 2)
+    model = model.to(device=resolve_device(device), dtype=dtype).eval()
+    return DepthEstimator(model)
+
+
 def build_pipeline(cfg: PipelineConfig = PipelineConfig(), device="cuda",
                    dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                    vocab_path: Optional[str] = None) -> InkLayerPipeline:
-    """Detector + SAM predictor on ``device`` in ``dtype`` (bf16 on the
-    card; LayerNorm, softmax and sampling statistics stay fp32)."""
+    """Detector, SAM predictor and depth estimator on ``device`` in
+    ``dtype`` (bf16 on the card; LayerNorm, softmax and sampling
+    statistics stay fp32)."""
     return InkLayerPipeline(build_detector(cfg, device, dtype, seed, vocab_path),
-                            build_sam(cfg, device, dtype, seed), cfg)
+                            build_sam(cfg, device, dtype, seed),
+                            build_depth(cfg, device, dtype, seed), cfg)

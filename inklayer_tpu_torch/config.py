@@ -1,9 +1,11 @@
-"""Configuration of the ported slice (detect + segment).
+"""Configuration of the port (the default run: detect, segment, clean,
+NMS, depth, refine).
 
 The sections of :mod:`inklayer_tpu.config` that the port runs, with the
 same field names and defaults, so a JSON file written by the JAX package's
 ``save_config`` loads here too.  Sections of stages that are not ported
-yet (depth, diffusion, refine, parallel) are ignored on load.
+yet (diffusion, parallel) and top-level options the port does not read are
+ignored on load.
 """
 
 from __future__ import annotations
@@ -103,9 +105,56 @@ class SamConfig:
 
 
 @dataclass(frozen=True)
+class DepthConfig:
+    """Depth-Anything-V2 (DINOv2 encoder + DPT head); defaults ViT-B."""
+
+    encoder: str = "vitb"
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    patch_size: int = 14
+    intermediate_layers: tuple[int, ...] = (2, 5, 8, 11)
+    features: int = 128
+    out_channels: tuple[int, ...] = (96, 192, 384, 768)
+    input_size: int = 518  # resize lower bound, multiple of 14
+    layerscale_init: float = 1.0
+    interpolate_offset: float = 0.1
+    # metric-depth variant: > 0 switches the head to sigmoid * max_depth
+    max_depth: float = 0.0
+
+
+@dataclass(frozen=True)
+class RefineConfig:
+    """Classical refinement constants (cleaning, sketch NMS, depth sort,
+    refiner), faithful to the reference values."""
+
+    clean_threshold: int = 127
+    clean_kernel_frac: float = 0.025
+    min_cc_area: int = 500
+    min_cc_aspect: float = 1.1
+    nms_iou: float = 0.2
+    nms_bbox_iou_kill: float = 0.7
+    nms_eps_px_per_kdiag: float = 8.0
+    nms_max_contained: int = 5
+    nms_max_area_frac: float = 0.9
+    ink_threshold: int = 250
+    sample_radius_frac: float = 0.01
+    depth_bin: float = 0.1
+    containment_eps_frac: float = 0.002
+    containment_area_gap: float = 0.02
+    overlap_major_frac: float = 0.6
+    max_ink_cover_frac: float = 0.9
+    fragment_merge_frac: float = 0.05
+    watershed_iters: int = 256
+    distance_iters: int = 64
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     gdino: GDinoConfig = field(default_factory=GDinoConfig)
     sam: SamConfig = field(default_factory=SamConfig)
+    depth: DepthConfig = field(default_factory=DepthConfig)
+    refine: RefineConfig = field(default_factory=RefineConfig)
 
 
 def _from_jsonable(cls: type, data: dict) -> Any:
@@ -129,7 +178,7 @@ def _from_jsonable(cls: type, data: dict) -> Any:
 
 # field annotations are strings under ``from __future__ import annotations``
 _SECTIONS = {c.__name__: c for c in (SwinConfig, BertConfig, GDinoConfig,
-                                     SamConfig)}
+                                     SamConfig, DepthConfig, RefineConfig)}
 
 
 def load_config(path: str) -> PipelineConfig:

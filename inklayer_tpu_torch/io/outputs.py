@@ -1,7 +1,10 @@
-"""Output-directory writers for the detect+segment half of the reference's
-per-image layout (copied from :mod:`inklayer_tpu.io.outputs`, which imports
-jax through ``inklayer_tpu.ops``): ``input.png``, ``bboxes.json``,
-``bboxes.png``, ``masks/``, ``segmented_sketch.png``.
+"""Output-directory writers for the reference's per-image layout (copied
+from :mod:`inklayer_tpu.io.outputs`, which imports jax through
+``inklayer_tpu.ops``): ``input.png``, ``bboxes.json``, ``bboxes.png``,
+``masks/``, ``segmented_sketch.png``, ``masks_cleaned/``,
+``bboxes_final.json``, ``bboxes_final.png``, ``masks_disjoint/``,
+``depth_map.png``, ``masks_final/``, ``segmented_sketch_final.png``, and
+the ``--no_intermediate`` keep-list cleanup.
 
 PNGs are written filter-None + zlib level 1 (as the JAX package's native
 encoder does): PIL spends most of its PNG time on the adaptive filter
@@ -20,6 +23,12 @@ import numpy as np
 from PIL import Image, ImageDraw
 
 from inklayer_tpu_torch.ops.color import generate_pastel_colors
+
+KEEP_LIST = [
+    "masks_final", "complete_layers", "complete_layers_rgba",
+    "bboxes_final.json", "bboxes_final.png", "segmented_sketch_final.png",
+    "depth_map.png", "input.png",
+]
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
@@ -117,3 +126,16 @@ def draw_boxes_image(image: Image.Image, norm_boxes, scores=None,
         if parts:
             draw.text((x1, max(0, y1 - 12)), " : ".join(parts), fill=colors[i])
     return img
+
+
+def cleanup_intermediate(out_dir: str) -> None:
+    """--no_intermediate: delete every item not in KEEP_LIST
+    (runner.py:91-101)."""
+    for item in os.listdir(out_dir):
+        if item in KEEP_LIST:
+            continue
+        path = os.path.join(out_dir, item)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)

@@ -1,11 +1,12 @@
-"""CLI of the PyTorch/CUDA port, detect + segment:
+"""CLI of the PyTorch/CUDA port, the default run:
 
     python -m inklayer_tpu_torch.main --img <path> | --dir <path>
                                       [--out_dir ./output] [--config cfg.json]
+                                      [--no_intermediate] [--device cuda]
 
-Same input flags as the JAX package's ``main.py``.  ``--no_intermediate``
-and ``--inpaint`` are refused until the stages they need are ported.
-Parameters are seeded placeholders (no checkpoints ship with the repo).
+Same input flags as the JAX package's ``main.py``; ``--inpaint`` is refused
+until the diffusion stage is ported.  Parameters are seeded placeholders
+(no checkpoints ship with the repo).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import sys
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="InkLayer detect + segment on PyTorch/CUDA")
+        description="InkLayer default run on PyTorch/CUDA")
     parser.add_argument("--img", type=str, default=None)
     parser.add_argument("--dir", type=str, default=None,
                         help="directory of input images (*.png, *.jpg)")
@@ -30,12 +31,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    if args.no_intermediate:
-        parser.error("--no_intermediate needs the mask-cleaning, NMS, depth "
-                     "and refine stages, which are not ported yet")
     if args.inpaint:
-        parser.error("--inpaint needs the refine and diffusion stages, which "
-                     "are not ported yet")
+        parser.error("--inpaint needs the diffusion stage, which is not "
+                     "ported yet")
     if args.img is None and args.dir is None:
         parser.error("provide --img or --dir")
 
@@ -56,7 +54,8 @@ def main(argv=None):
         print("no input images found", file=sys.stderr)
         sys.exit(1)
     for p in paths:
-        out = pipeline.run(p, args.out_dir)
+        out = pipeline.run(p, args.out_dir,
+                           no_intermediate=args.no_intermediate)
         print(f"{p} -> {out}")
         print("stage times (s):", {k: round(v, 3) for k, v in
                                    pipeline.stage_times.items()})

@@ -9,6 +9,13 @@ Port of :mod:`inklayer_tpu.ops.attention`:
   ``csrc/relpos_attention.cu`` (ports the Pallas window kernel
   ``sam_window_block_attention`` and the global kernel
   ``sam_global_attention2``); on a CPU tensor it runs the plain version;
+* :func:`flash_attention` — attention with no bias over long sequences
+  (DINOv2's 1370 tokens).  On a CUDA tensor it launches the kernel of
+  ``csrc/flash_attention.cu`` (ports the Pallas ``flash_attention``); on a
+  CPU tensor it runs the plain version;
+* :func:`attention` — the JAX package's dispatcher: 4-D input with no bias
+  and no mask and at least ``min_flash_len`` keys goes to
+  :func:`flash_attention`, everything else to :func:`sdpa`;
 * the rel-term helpers (:func:`gather_rel_pos`, :func:`rel_terms`), which
   are XLA in the JAX package and plain PyTorch here.
 """
@@ -42,6 +49,61 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (no bias)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """(BH, Nq, D) attention over (BH, Nk, D) keys and values (the port
+    pads no keys, so there is no tail to mask)."""
+    return sdpa(q, k, v, scale=scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(scale * q k^T) v over (BH, N, D); scale defaults to
+    D ** -0.5.  Returns (BH, N, D) in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not use_kernel(q, k, v):
+        return flash_attention_plain(q, k, v, scale)
+    bh, n, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("flash kernel: q, k, v must have one shape")
+    if d != 64:
+        raise ValueError(f"flash kernel is built for head_dim 64, got {d}")
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("flash kernel takes contiguous, 16-byte aligned "
+                             "bf16 tensors")
+    out = torch.empty_like(q)
+    status = _kernels.lib().ik_flash_attention(
+        _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
+        bh, n, d, float(scale), _kernels.stream_handle(q.device))
+    _kernels.check(status, "flash_attention")
+    _kernels.count_launch("flash_attention")
+    return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None,
+              min_flash_len: int = 1024) -> torch.Tensor:
+    """(B, H, N, D) attention: long unbiased, unmasked sequences go to
+    :func:`flash_attention`, everything else to :func:`sdpa`."""
+    if not (bias is None and mask is None and k.shape[-2] >= min_flash_len
+            and q.dim() == 4):
+        return sdpa(q, k, v, bias=bias, mask=mask, scale=scale)
+    b, h, nq, d = q.shape
+    fold = lambda t: t.reshape(b * h, t.shape[-2], d).contiguous()
+    return flash_attention(fold(q), fold(k), fold(v), scale).reshape(
+        b, h, nq, d)
 
 
 # ---------------------------------------------------------------------------

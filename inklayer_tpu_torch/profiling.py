@@ -29,9 +29,10 @@ def _union_us(intervals) -> float:
 
 
 def device_profile(fn, top: int = 10) -> dict:
-    """{'wall_ms', 'busy_ms', 'idle_share', 'kernels': [(name, ms, calls)]}
-    for one traced call of ``fn`` (which must synchronise the card before
-    it returns)."""
+    """{'wall_ms', 'busy_ms', 'idle_share', 'device_ops', 'kernels':
+    [(name, ms, calls)]} for one traced call of ``fn`` (which must
+    synchronise the card before it returns); ``device_ops`` counts the
+    kernels and copies the card ran."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -49,4 +50,5 @@ def device_profile(fn, top: int = 10) -> dict:
     kernels = sorted(((n, ms, c) for n, (ms, c) in per_name.items()),
                      key=lambda r: -r[1])[:top]
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / wall_us, "kernels": kernels}
+            "idle_share": 1.0 - busy / wall_us, "device_ops": len(events),
+            "kernels": kernels}

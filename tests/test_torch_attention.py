@@ -1,12 +1,14 @@
 """Port parity: attention ops (inklayer_tpu_torch.ops.attention) against
-the JAX package: sdpa, the rel-term helpers, and the plain rel-pos
-attention against the Pallas SAM kernels in interpret mode
+the JAX package: sdpa, the rel-term helpers, the plain rel-pos attention
+against the Pallas SAM kernels in interpret mode
 (sam_window_block_attention, sam_global_attention2, and
-sam_global_attention for a kh = kw != 64 grid).
+sam_global_attention for a kh = kw != 64 grid), and the plain flash
+attention against the Pallas ``flash_attention`` in interpret mode.
 
-Tolerances: fp32 ops atol = rtol = 1e-4; kernels that round operands to
-bf16 inside (the window kernel's aug matmul, sam_global_attention's bf16
-rel expansion) at bf16 tolerance atol = rtol = 2e-2.
+Tolerances: fp32 ops atol = rtol = 1e-4; the flash attention atol 2e-5 in
+fp32; kernels that round operands to bf16 inside (the window kernel's aug
+matmul, sam_global_attention's bf16 rel expansion) at bf16 tolerance
+atol = rtol = 2e-2.
 """
 
 import jax.numpy as jnp
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from inklayer_tpu.models.sam.image_encoder import _gather_rel_pos, _rel_term
-from inklayer_tpu.ops.attention import (sam_global_attention,
+from inklayer_tpu.ops.attention import (attention, flash_attention,
+                                        sam_global_attention,
                                         sam_global_attention2,
                                         sam_window_block_attention, sdpa)
 from inklayer_tpu_torch.ops import attention as T
@@ -145,3 +148,39 @@ def test_relpos_attention_refuses_bad_tiling():
     with pytest.raises(RuntimeError):
         T.relpos_attention(q, q, q, torch.zeros(1, 12, 3), torch.zeros(1, 12, 5),
                            0.25)
+
+
+@pytest.mark.parametrize("bh,n", [(2, 300), (2, 1370)])
+def test_flash_plain_matches_pallas_flash_kernel(rng, bh, n):
+    """1370 = 21 * 64 + 26: the Pallas kernel pads the keys to 1408 and
+    masks the tail (nk_valid); the plain version sees no padding."""
+    q, k, v = (rng.standard_normal((bh, n, 64)).astype(np.float32)
+               for _ in range(3))
+    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           interpret=True)
+    got = T.flash_attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
+def test_flash_plain_masks_tail_keys(rng):
+    """50 keys: the Pallas kernel pads them to 128 and masks the 78-key
+    tail; the plain version is given the 50 keys alone."""
+    q = rng.standard_normal((2, 70, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 50, 64)).astype(np.float32)
+            for _ in range(2))
+    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           scale=0.125, interpret=True)
+    got = T.flash_attention_plain(_t(q), _t(k), _t(v), 0.125)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n", [100, 1030])
+def test_attention_dispatcher_matches_jax(rng, n):
+    """(B, H, N, D): >= 1024 keys take the flash op, shorter sdpa."""
+    q, k, v = (rng.standard_normal((1, 2, n, 64)).astype(np.float32)
+               for _ in range(3))
+    want = attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = T.attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)

@@ -12,7 +12,7 @@ from tests.test_pipeline import TINY_PIPE
 
 
 @pytest.mark.parametrize("name", ["SwinConfig", "BertConfig", "GDinoConfig",
-                                  "SamConfig"])
+                                  "SamConfig", "DepthConfig", "RefineConfig"])
 def test_sections_match_jax_defaults(name):
     assert dataclasses.asdict(getattr(T, name)()) == \
         dataclasses.asdict(getattr(J, name)())
@@ -26,3 +26,6 @@ def test_jax_saved_json_loads_into_the_port(tmp_path):
     assert isinstance(cfg.gdino.swin, T.SwinConfig)
     assert dataclasses.asdict(cfg.gdino) == dataclasses.asdict(TINY_PIPE.gdino)
     assert dataclasses.asdict(cfg.sam) == dataclasses.asdict(TINY_PIPE.sam)
+    assert dataclasses.asdict(cfg.depth) == dataclasses.asdict(TINY_PIPE.depth)
+    assert dataclasses.asdict(cfg.refine) == \
+        dataclasses.asdict(TINY_PIPE.refine)

@@ -1,6 +1,7 @@
-"""The port imports no jax or flax, and nothing of the JAX package: every
-module of inklayer_tpu_torch imports in a fresh interpreter where jax and
-flax are blocked, and no inklayer_tpu module is loaded after it."""
+"""The port imports no jax or flax, nothing of the JAX package, and no
+scipy: every module of inklayer_tpu_torch imports in a fresh interpreter
+where jax, flax and scipy are blocked, and no inklayer_tpu module is loaded
+after it."""
 
 import os
 import subprocess
@@ -12,6 +13,7 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["scipy"] = None
 import inklayer_tpu_torch
 names = ["inklayer_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(inklayer_tpu_torch.__path__,
@@ -37,6 +39,7 @@ def test_every_port_module_imports_without_jax():
 def test_chip_smoke_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     code = ("import sys; sys.modules['jax'] = None; sys.modules['flax'] = None;"
+            " sys.modules['scipy'] = None;"
             " sys.modules['inklayer_tpu'] = None; import chip_smoke;"
             " import inklayer_tpu_torch.build, inklayer_tpu_torch.main")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -3,18 +3,21 @@ versions, on the card.  Marked ``gpu``: without a CUDA device every test
 skips (the CPU tests cover the plain versions' parity with the JAX
 package).  Run on a card with
 
-    python -m pytest tests/test_torch_kernels_gpu.py -q
+    python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest
 
 Inputs are seeded bf16; the plain version runs in fp32 on the same card
 with TF32 off.  Tolerance atol = rtol = 2e-2 (bf16 outputs; the attention
-rounds its probabilities and the MLP its hidden activation to bf16).
+rounds its probabilities and the MLP its hidden activation to bf16).  The
+connected-components kernels are exact: labels and cleaned masks equal
+their plain versions bit for bit.
 """
 
 import pytest
 import torch
 
 from inklayer_tpu_torch import _kernels
-from inklayer_tpu_torch.ops import attention, deformable, mlp, norm
+from inklayer_tpu_torch.ops import (attention, components, deformable, mlp,
+                                    norm)
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -89,6 +92,50 @@ def test_ms_deform_attn_kernel(gen, lq):
     torch.testing.assert_close(got.float(), want, **TOL)
 
 
+@pytest.mark.parametrize("bh,n", [(12, 1370), (3, 64), (2, 100), (1, 1)])
+def test_flash_attention_kernel(gen, bh, n):
+    q, k, v = (_randn(gen, bh, n, 64) for _ in range(3))
+    before = _kernels.LAUNCHES["flash_attention"]
+    got = attention.flash_attention(q, k, v)
+    assert _kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attention.flash_attention_plain(*_f32([q, k, v]), 64 ** -0.5)
+    torch.testing.assert_close(got.float(), want, **TOL)
+    # a uniform scaling (unmasked padded keys) hides inside the rtol above
+    assert float((got.float() - want).norm() / want.norm()) <= 5e-3
+
+
+def _blob_stack(gen, n, h, w):
+    """Blobs (thresholded smoothed noise), thin strokes and speckle."""
+    noise = torch.rand(n, 1, h // 8, w // 8, generator=gen, device="cuda")
+    blobs = torch.nn.functional.interpolate(noise, size=(h, w),
+                                            mode="bilinear")[:, 0] > 0.6
+    speckle = torch.rand(n, h, w, generator=gen, device="cuda") > 0.995
+    masks = blobs | speckle
+    masks[:, h // 3, 5:w - 5] = True
+    masks[:, 5:h - 5, w // 2] = True
+    return masks
+
+
+@pytest.mark.parametrize("n,h,w", [(4, 64, 80), (8, 300, 257), (2, 750, 750)])
+def test_connected_components_kernel(gen, n, h, w):
+    masks = _blob_stack(gen, n, h, w)
+    before = _kernels.LAUNCHES["connected_components"]
+    got = components.connected_components(masks)
+    assert _kernels.LAUNCHES["connected_components"] == before + 1
+    assert torch.equal(got, components.connected_components_plain(masks))
+
+
+@pytest.mark.parametrize("n,h,w", [(4, 64, 80), (8, 300, 257), (2, 750, 750)])
+def test_clean_components_kernel(gen, n, h, w):
+    masks = _blob_stack(gen, n, h, w)
+    before = _kernels.LAUNCHES["clean_components"]
+    got, capped = components.clean_components(masks, 50, 1.1)
+    assert _kernels.LAUNCHES["clean_components"] == before + 1
+    want, _ = components.clean_components_plain(masks, 50, 1.1)
+    assert torch.equal(got, want) and not capped.any()
+    assert 0 < int(got.sum()) < int(masks.sum())  # some kept, some dropped
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, 2, 36, 32)  # head_dim 32: no kernel instance
     r = _randn(gen, 2, 36, 6)
@@ -99,3 +146,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         mlp.mlp_gelu(x, w, _randn(gen, 512), _randn(gen, 128, 512),
                      _randn(gen, 128))
+    q = _randn(gen, 2, 300, 80)  # head_dim 80: no flash instance
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError):  # components take bool masks
+        components.connected_components(_randn(gen, 2, 8, 8))
