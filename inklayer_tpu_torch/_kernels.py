@@ -14,7 +14,9 @@ package needs no toolchain.  Every C entry point returns the value of
 
 ``LAUNCHES`` holds one plain integer per kernel.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show which
-kernels its main path went through.
+kernels its main path went through.  A kernel built in several instances
+(the flash attention at head_dim 40, 64 and 80) also counts each instance
+under ``"<kernel>/<instance>"``.
 """
 
 from __future__ import annotations
@@ -75,18 +77,21 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, instance: str = "") -> None:
     LAUNCHES[name] += 1
+    if instance:
+        key = f"{name}/{instance}"
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
-                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+def _sources(csrc_dir: str = CSRC_DIR):
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu"))
+                  + glob.glob(os.path.join(csrc_dir, "*.cuh")))
 
 
-def _source_hash() -> str:
+def _source_hash(csrc_dir: str = CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+    for path in _sources(csrc_dir):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -104,22 +109,24 @@ def _nvcc() -> str:
     return found
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernel library if no build of these sources exists;
-    returns its path."""
+def build(verbose: bool = False, csrc_dir: str = CSRC_DIR,
+          build_dir: str = BUILD_DIR) -> str:
+    """Compile the kernel library of ``csrc_dir`` if no build of these
+    sources exists in ``build_dir``; returns its path."""
     global build_seconds
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"libinklayer_kernels_{_source_hash()}.so")
+    os.makedirs(build_dir, exist_ok=True)
+    path = os.path.join(build_dir,
+                        f"libinklayer_kernels_{_source_hash(csrc_dir)}.so")
     if os.path.exists(path):
         return path
     nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     jobs = []
-    for src in (p for p in _sources() if p.endswith(".cu")):
+    for src in (p for p in _sources(csrc_dir) if p.endswith(".cu")):
         obj = f"{tmp}.{os.path.basename(src)}.o"
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-               "-I", CSRC_DIR, "-c", "-o", obj, src]
+               "-I", csrc_dir, "-c", "-o", obj, src]
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE, text=True)))
     errors, objs = [], []
@@ -146,19 +153,24 @@ def build(verbose: bool = False) -> str:
     return path
 
 
+def load(path: str) -> ctypes.CDLL:
+    """A built kernel library with its entry points' signatures set."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.ik_error_string.argtypes = [ctypes.c_int]
+    handle.ik_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.ik_error_string.argtypes = [ctypes.c_int]
-            handle.ik_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = load(build())
     return _lib
 
 

@@ -1,10 +1,11 @@
 """Configuration of the port (the default run: detect, segment, clean,
-NMS, depth, refine).
+NMS, depth, refine; and the inpainting stage).
 
 The sections of :mod:`inklayer_tpu.config` that the port runs, with the
 same field names and defaults, so a JSON file written by the JAX package's
 ``save_config`` loads here too.  Sections of stages that are not ported
-yet (diffusion, parallel) and top-level options the port does not read are
+yet (parallel) and top-level options the port does not read (among them
+``inpaint``, which neither package reads: the CLI flag decides) are
 ignored on load.
 """
 
@@ -124,6 +125,43 @@ class DepthConfig:
 
 
 @dataclass(frozen=True)
+class DiffusionConfig:
+    """SD1.5-inpaint + ControlNet v11p-inpaint stage: 768^2, 30
+    DPM-Solver++(2M) steps, CFG 9.0, ControlNet scale 1.2, seed 3, two
+    passes, the reference's prompt strings."""
+
+    resolution: int = 768
+    num_steps: int = 30
+    guidance_scale: float = 9.0
+    controlnet_scale: float = 1.2
+    seed: int = 3
+    num_passes: int = 2
+    prompt: str = (
+        "high quality black and white line drawing, clean precise lines, "
+        "detailed sketch, professional illustration, sharp edges"
+    )
+    negative_prompt: str = (
+        "blurry, smudged, messy lines, low quality, artifacts, noise, "
+        "distorted, pixelated"
+    )
+    # single-layer web edit: the user's prompt, the same negative, cfg 7.0,
+    # cond 0.6, one pass
+    single_layer_guidance_scale: float = 7.0
+    single_layer_controlnet_scale: float = 0.6
+    single_layer_negative_prompt: str = (
+        "blurry, smudged, messy lines, low quality, artifacts, noise, "
+        "distorted, pixelated"
+    )
+    unet_block_channels: tuple[int, ...] = (320, 640, 1280, 1280)
+    unet_layers_per_block: int = 2
+    unet_attention_head_dim: int = 8
+    cross_attention_dim: int = 768
+    latent_channels: int = 4
+    vae_channels: tuple[int, ...] = (128, 256, 512, 512)
+    text_maxlen: int = 77
+
+
+@dataclass(frozen=True)
 class RefineConfig:
     """Classical refinement constants (cleaning, sketch NMS, depth sort,
     refiner), faithful to the reference values."""
@@ -154,6 +192,7 @@ class PipelineConfig:
     gdino: GDinoConfig = field(default_factory=GDinoConfig)
     sam: SamConfig = field(default_factory=SamConfig)
     depth: DepthConfig = field(default_factory=DepthConfig)
+    diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     refine: RefineConfig = field(default_factory=RefineConfig)
 
 
@@ -178,7 +217,8 @@ def _from_jsonable(cls: type, data: dict) -> Any:
 
 # field annotations are strings under ``from __future__ import annotations``
 _SECTIONS = {c.__name__: c for c in (SwinConfig, BertConfig, GDinoConfig,
-                                     SamConfig, DepthConfig, RefineConfig)}
+                                     SamConfig, DepthConfig, DiffusionConfig,
+                                     RefineConfig)}
 
 
 def load_config(path: str) -> PipelineConfig:

@@ -7,7 +7,12 @@
 //
 // One block per (bh, 64-query tile) walks 64-key tiles with an online
 // softmax in fp32.  QK^T and PV are WMMA bf16 16x16x16 products with fp32
-// accumulators; each of the 4 warps owns 16 query rows.  Keys past N in
+// accumulators; each of the 4 warps owns 16 query rows.  WMMA needs a
+// head dim that is a multiple of 16, so the Q/K/V tiles and the output
+// accumulator are DP = round_up(D, 16) wide in shared memory, with columns
+// D..DP-1 of Q, K and V zero (head_dim 40 -> 48: the zero columns add
+// nothing to q.k, and the scale stays the caller's D ** -0.5); only D
+// columns are rescaled and written out.  Keys past N in
 // the last tile are masked to -inf; the rel terms of the block's queries
 // are staged once in shared memory and added in the softmax pass, so the
 // (N, N) bias never exists.  The probabilities are rounded to bf16 for the
@@ -32,10 +37,15 @@ constexpr int kThreads = 128;
 constexpr int LDS_P = BKV + 8;   // bf16 P tile stride
 constexpr int LDS_S = BKV + 4;   // fp32 logits stride
 
+// head dim padded to the WMMA depth of 16
+template <int D>
+constexpr int kPadded = (D + 15) / 16 * 16;
+
 template <int D, bool kRel>
 struct Smem {
-  static constexpr int LDQ = D + 8;  // bf16 Q/K/V stride
-  static constexpr int LDO = D + 4;  // fp32 O stride
+  static constexpr int DP = kPadded<D>;
+  static constexpr int LDQ = DP + 8;  // bf16 Q/K/V stride
+  static constexpr int LDO = DP + 4;  // fp32 O stride
   static constexpr size_t q = 0;
   static constexpr size_t k = q + sizeof(bf16) * BQ * LDQ;
   static constexpr size_t v = k + sizeof(bf16) * BKV * LDQ;
@@ -48,16 +58,20 @@ struct Smem {
       rw + (kRel ? sizeof(bf16) * BQ * kMaxRel : 0);
 };
 
-// rows [row0, row0 + 64) of a (N, D) bf16 matrix into smem (zero past N)
+// rows [row0, row0 + 64) of a (N, D) bf16 matrix into a DP-wide smem tile:
+// zero past N and in the pad columns D..DP-1 (D % 8 == 0: a row is whole
+// 16-byte vectors)
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
                                           int N, int tid) {
-  constexpr int kVec = D / 8;  // 16-byte vectors per row
-  constexpr int LD = D + 8;
+  static_assert(D % 8 == 0, "rows must be whole 16-byte vectors");
+  constexpr int DP = kPadded<D>;
+  constexpr int kVec = DP / 8;  // 16-byte vectors per smem row
+  constexpr int LD = DP + 8;
   for (int i = tid; i < 64 * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < N)
+    if (row0 + r < N && c < D)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
   }
@@ -71,7 +85,7 @@ attention_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ rel_w, bf16* __restrict__ out,
                       int N, int kh, int kw, float scale) {
   using L = Smem<D, kRel>;
-  constexpr int LDQ = L::LDQ, LDO = L::LDO;
+  constexpr int DP = L::DP, LDQ = L::LDQ, LDO = L::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
@@ -121,7 +135,7 @@ attention_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
+      for (int kk = 0; kk < DP; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
         wmma::load_matrix_sync(fa, sQ + warp * 16 * LDQ + kk, LDQ);
@@ -172,7 +186,7 @@ attention_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // O += P V
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < DP / 16; ++j) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::load_matrix_sync(acc, sO + warp * 16 * LDO + j * 16, LDO,
                              wmma::mem_row_major);

@@ -1,12 +1,14 @@
-"""CLI of the PyTorch/CUDA port, the default run:
+"""CLI of the PyTorch/CUDA port:
 
     python -m inklayer_tpu_torch.main --img <path> | --dir <path>
                                       [--out_dir ./output] [--config cfg.json]
-                                      [--no_intermediate] [--device cuda]
+                                      [--no_intermediate] [--inpaint]
+                                      [--device cuda]
 
-Same input flags as the JAX package's ``main.py``; ``--inpaint`` is refused
-until the diffusion stage is ported.  Parameters are seeded placeholders
-(no checkpoints ship with the repo).
+Same input flags as the JAX package's ``main.py``: the default run, and
+with ``--inpaint`` the layer completion (SD1.5-inpaint + ControlNet).  It
+runs on the card unless ``--device cpu`` is given.  Parameters are seeded
+placeholders (no checkpoints ship with the repo).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import sys
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="InkLayer default run on PyTorch/CUDA")
+        description="InkLayer on PyTorch/CUDA")
     parser.add_argument("--img", type=str, default=None)
     parser.add_argument("--dir", type=str, default=None,
                         help="directory of input images (*.png, *.jpg)")
@@ -31,9 +33,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    if args.inpaint:
-        parser.error("--inpaint needs the diffusion stage, which is not "
-                     "ported yet")
     if args.img is None and args.dir is None:
         parser.error("provide --img or --dir")
 
@@ -55,7 +54,8 @@ def main(argv=None):
         sys.exit(1)
     for p in paths:
         out = pipeline.run(p, args.out_dir,
-                           no_intermediate=args.no_intermediate)
+                           no_intermediate=args.no_intermediate,
+                           inpaint=args.inpaint)
         print(f"{p} -> {out}")
         print("stage times (s):", {k: round(v, 3) for k, v in
                                    pipeline.stage_times.items()})

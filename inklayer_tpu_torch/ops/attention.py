@@ -10,7 +10,9 @@ Port of :mod:`inklayer_tpu.ops.attention`:
   ``sam_window_block_attention`` and the global kernel
   ``sam_global_attention2``); on a CPU tensor it runs the plain version;
 * :func:`flash_attention` — attention with no bias over long sequences
-  (DINOv2's 1370 tokens).  On a CUDA tensor it launches the kernel of
+  (DINOv2's 1370 tokens at head_dim 64; the SD1.5 UNet's and ControlNet's
+  self-attention, 9216 tokens at head_dim 40 and 2304 at head_dim 80 for
+  a 768^2 image).  On a CUDA tensor it launches the kernel of
   ``csrc/flash_attention.cu`` (ports the Pallas ``flash_attention``); on a
   CPU tensor it runs the plain version;
 * :func:`attention` — the JAX package's dispatcher: 4-D input with no bias
@@ -31,6 +33,7 @@ from inklayer_tpu_torch import _kernels
 from inklayer_tpu_torch.runtime import use_kernel
 
 _NEG_INF = -1e30
+FLASH_HEAD_DIMS = (40, 64, 80)  # the instances of csrc/flash_attention.cu
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,8 +77,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, n, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash kernel: q, k, v must have one shape")
-    if d != 64:
-        raise ValueError(f"flash kernel is built for head_dim 64, got {d}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash kernel is built for head_dim "
+                         f"{FLASH_HEAD_DIMS}, got {d}")
     for t in (q, k, v):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() \
                 or t.data_ptr() % 16:
@@ -86,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
         bh, n, d, float(scale), _kernels.stream_handle(q.device))
     _kernels.check(status, "flash_attention")
-    _kernels.count_launch("flash_attention")
+    _kernels.count_launch("flash_attention", f"d{d}")
     return out
 
 

@@ -1,6 +1,6 @@
-"""Pipeline orchestrator: the default run (port of
-:meth:`inklayer_tpu.pipeline.runner.InkLayerPipeline.run`,
-runner.py:389-856, with ``device_front=False`` and no inpainting).
+"""Pipeline orchestrator: the default run and the inpainting stage (port
+of :meth:`inklayer_tpu.pipeline.runner.InkLayerPipeline.run`,
+runner.py:389-856, with ``device_front=False``).
 
 GroundingDINO detect -> the top-K boxes chained into SAM's box-prompted
 decode -> full-resolution masks -> mask cleaning -> the host NMS prefilter
@@ -9,8 +9,11 @@ disjoint compositing, watershed and box refinement -> the reference's
 output contract: ``input.png``, ``bboxes.json``, ``bboxes.png``,
 ``masks/``, ``segmented_sketch.png``, ``masks_cleaned/``,
 ``bboxes_final.json``, ``bboxes_final.png``, ``masks_disjoint/``,
-``depth_map.png``, ``masks_final/``, ``segmented_sketch_final.png``.
-``no_intermediate`` leaves only the items of ``KEEP_LIST``.
+``depth_map.png``, ``masks_final/``, ``segmented_sketch_final.png``;
+with ``inpaint``, the inpainter then completes the occluded layers from
+``masks_final/`` (``complete_layers/``, ``complete_layers_process/``,
+``complete_layers_rgba/``).  ``no_intermediate`` leaves only the items of
+``KEEP_LIST``.
 
 Masks, depth and the refine stack stay on the model's device; the host
 reads back the detections, the NMS/depth-stat matrices, the small refine
@@ -73,14 +76,15 @@ class InkLayerPipeline:
     :func:`inklayer_tpu_torch.build.build_pipeline`)."""
 
     def __init__(self, detector, sam_predictor, depth_estimator,
-                 cfg: PipelineConfig = PipelineConfig()):
+                 cfg: PipelineConfig = PipelineConfig(), inpainter=None):
         self.detector = detector
         self.sam = sam_predictor
         self.depth = depth_estimator
+        self.inpainter = inpainter
         self.cfg = cfg
         self.device = sam_predictor.device
-        # seconds per stage of the last run() (STAGES; device work included:
-        # each stage ends with a synchronise)
+        # seconds per stage of the last run() (STAGES, and "inpaint" when
+        # it ran; device work included: each stage ends with a synchronise)
         self.stage_times: dict = {}
 
     def _stage(self, name: str, t0: float) -> float:
@@ -91,8 +95,9 @@ class InkLayerPipeline:
         return t1
 
     def run(self, input_path: str, out_base_dir: str,
-            no_intermediate: bool = False) -> str:
-        """The default run on one image; returns its output directory."""
+            no_intermediate: bool = False, inpaint: bool = False) -> str:
+        """The default run on one image, then the inpainting stage when
+        ``inpaint``; returns its output directory."""
         cfg = self.cfg
         rcfg = cfg.refine
         self.stage_times = {}
@@ -210,7 +215,7 @@ class InkLayerPipeline:
             final = final[:-1]
         t0 = self._stage("refine", t0)
 
-        if not no_intermediate:
+        if not no_intermediate or inpaint:  # the layer editors read it
             io_out.save_masks_dir(disjoint.cpu().numpy(),
                                   os.path.join(out_dir, "masks_disjoint"))
         io_out.save_masks_dir(final.cpu().numpy(),
@@ -220,7 +225,14 @@ class InkLayerPipeline:
                                   axis=2))
         _save_sketch(os.path.join(out_dir, "segmented_sketch_final.png"),
                      image, final)
+        t0 = self._stage("write", t0)
+        if inpaint:  # reads masks_final/ and input.png from disk
+            if self.inpainter is None:
+                raise RuntimeError("inpainting requested but the pipeline "
+                                   "has no inpainter")
+            self.inpainter.run_on_sketch_dir(out_dir)
+            t0 = self._stage("inpaint", t0)
         if no_intermediate:
             io_out.cleanup_intermediate(out_dir)
-        self._stage("write", t0)
+            self._stage("write", t0)
         return out_dir

@@ -176,6 +176,33 @@ def test_flash_plain_masks_tail_keys(rng):
                                rtol=0)
 
 
+@pytest.mark.parametrize("bh,n,d", [(2, 100, 40), (2, 70, 80),
+                                    (3, 1030, 40)])
+def test_flash_plain_matches_pallas_flash_kernel_unet_head_dims(rng, bh, n,
+                                                                d):
+    """The UNet's head dims: 40 (level 0, which the CUDA kernel pads to
+    48) and 80 (level 1); the Pallas kernel pads both to 128 lanes."""
+    q, k, v = (rng.standard_normal((bh, n, d)).astype(np.float32)
+               for _ in range(3))
+    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           interpret=True)
+    got = T.flash_attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
+def test_attention_dispatcher_at_head_dim_40_matches_pallas_flash(rng):
+    """(B, H, N, D) = (1, 2, 1030, 40): >= 1024 keys, so the dispatcher
+    folds the heads into the flash op, as the UNet's self-attention."""
+    q, k, v = (rng.standard_normal((1, 2, 1030, 40)).astype(np.float32)
+               for _ in range(3))
+    fold = lambda a: jnp.asarray(a.reshape(2, 1030, 40))
+    want = flash_attention(fold(q), fold(k), fold(v), interpret=True)
+    got = T.attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy().reshape(2, 1030, 40),
+                               np.asarray(want), atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("n", [100, 1030])
 def test_attention_dispatcher_matches_jax(rng, n):
     """(B, H, N, D): >= 1024 keys take the flash op, shorter sdpa."""

@@ -12,7 +12,8 @@ from tests.test_pipeline import TINY_PIPE
 
 
 @pytest.mark.parametrize("name", ["SwinConfig", "BertConfig", "GDinoConfig",
-                                  "SamConfig", "DepthConfig", "RefineConfig"])
+                                  "SamConfig", "DepthConfig", "RefineConfig",
+                                  "DiffusionConfig"])
 def test_sections_match_jax_defaults(name):
     assert dataclasses.asdict(getattr(T, name)()) == \
         dataclasses.asdict(getattr(J, name)())
@@ -29,3 +30,14 @@ def test_jax_saved_json_loads_into_the_port(tmp_path):
     assert dataclasses.asdict(cfg.depth) == dataclasses.asdict(TINY_PIPE.depth)
     assert dataclasses.asdict(cfg.refine) == \
         dataclasses.asdict(TINY_PIPE.refine)
+
+
+def test_jax_saved_diffusion_section_loads_into_the_port(tmp_path):
+    from tests.test_diffusion import TINY
+
+    path = str(tmp_path / "tiny.json")
+    J.save_config(dataclasses.replace(TINY_PIPE, diffusion=TINY,
+                                      inpaint=True), path)
+    cfg = T.load_config(path)
+    assert isinstance(cfg.diffusion, T.DiffusionConfig)
+    assert dataclasses.asdict(cfg.diffusion) == dataclasses.asdict(TINY)

@@ -92,13 +92,22 @@ def test_ms_deform_attn_kernel(gen, lq):
     torch.testing.assert_close(got.float(), want, **TOL)
 
 
-@pytest.mark.parametrize("bh,n", [(12, 1370), (3, 64), (2, 100), (1, 1)])
-def test_flash_attention_kernel(gen, bh, n):
-    q, k, v = (_randn(gen, bh, n, 64) for _ in range(3))
-    before = _kernels.LAUNCHES["flash_attention"]
+@pytest.mark.parametrize("bh,n,d", [(12, 1370, 64), (3, 64, 64),
+                                    (2, 100, 64), (1, 1, 64),
+                                    (4, 2304, 40), (2, 70, 40), (1, 1, 40),
+                                    (4, 2304, 80), (2, 100, 80)])
+def test_flash_attention_kernel(gen, bh, n, d):
+    """head_dim 40 runs on tiles padded to 48 columns: a kernel that
+    scaled by 48 ** -0.5 or left the pad columns unzeroed fails the L2
+    limit."""
+    q, k, v = (_randn(gen, bh, n, d) for _ in range(3))
+    before = _kernels.launch_counts()
     got = attention.flash_attention(q, k, v)
-    assert _kernels.LAUNCHES["flash_attention"] == before + 1
-    want = attention.flash_attention_plain(*_f32([q, k, v]), 64 ** -0.5)
+    after = _kernels.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    key = f"flash_attention/d{d}"
+    assert after[key] == before.get(key, 0) + 1
+    want = attention.flash_attention_plain(*_f32([q, k, v]), d ** -0.5)
     torch.testing.assert_close(got.float(), want, **TOL)
     # a uniform scaling (unmasked padded keys) hides inside the rtol above
     assert float((got.float() - want).norm() / want.norm()) <= 5e-3
@@ -146,8 +155,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         mlp.mlp_gelu(x, w, _randn(gen, 512), _randn(gen, 128, 512),
                      _randn(gen, 128))
-    q = _randn(gen, 2, 300, 80)  # head_dim 80: no flash instance
-    with pytest.raises(ValueError):
-        attention.flash_attention(q, q, q)
+    for d in (32, 48, 128):  # no flash instance
+        q = _randn(gen, 2, 300, d)
+        with pytest.raises(ValueError):
+            attention.flash_attention(q, q, q)
     with pytest.raises(ValueError):  # components take bool masks
         components.connected_components(_randn(gen, 2, 8, 8))

@@ -212,10 +212,10 @@ def test_cli_runs_the_slice_and_refuses_unported_flags(tmp_path, capsys):
     cfg_path = str(tmp_path / "tiny.json")
     save_config(TINY_PIPE, cfg_path)
     sketch = _sketch(tmp_path)
-    with pytest.raises(SystemExit) as exc:
-        main(["--img", sketch, "--inpaint"])
+    with pytest.raises(SystemExit) as exc:  # --inpaint runs (see
+        main(["--inpaint"])                 # test_torch_inpaint_slice.py)
     assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert "provide --img or --dir" in capsys.readouterr().err
     main(["--img", sketch, "--out_dir", str(tmp_path / "out"), "--config",
           cfg_path, "--device", "cpu"])
     assert sorted(os.listdir(tmp_path / "out" / "golden_sketch")) == \
