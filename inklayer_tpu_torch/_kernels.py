@@ -44,6 +44,7 @@ LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 _lib = None
 _lock = threading.Lock()
 build_seconds = None  # wall time of the build this process ran (None: reused)
+build_log = {}  # source name -> nvcc's stderr (ptxas -v), from a verbose build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +66,8 @@ _SIGNATURES = {
     "ik_clean_components": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # (q, k, v, out, BH, N, D, scale, stream)
     "ik_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # (D, rel) -> dynamic shared memory bytes of that attention instance
+    "ik_attention_smem_bytes": [_I, _I],
 }
 
 
@@ -112,7 +115,9 @@ def _nvcc() -> str:
 def build(verbose: bool = False, csrc_dir: str = CSRC_DIR,
           build_dir: str = BUILD_DIR) -> str:
     """Compile the kernel library of ``csrc_dir`` if no build of these
-    sources exists in ``build_dir``; returns its path."""
+    sources exists in ``build_dir``; returns its path.  ``verbose`` adds
+    ``-Xptxas -v`` and keeps each source's compiler messages (registers,
+    shared memory and spills per kernel) in :data:`build_log`."""
     global build_seconds
     os.makedirs(build_dir, exist_ok=True)
     path = os.path.join(build_dir,
@@ -127,15 +132,15 @@ def build(verbose: bool = False, csrc_dir: str = CSRC_DIR,
         obj = f"{tmp}.{os.path.basename(src)}.o"
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
                "-I", csrc_dir, "-c", "-o", obj, src]
-        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.PIPE, text=True)))
+        jobs.append((os.path.basename(src), obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors, objs = [], []
-    for obj, proc in jobs:
+    for name, obj, proc in jobs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n{err}")
         elif verbose:
-            print(err)
+            build_log[name] = err
         objs.append(obj)
     if not errors:
         res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],

@@ -1,216 +1,568 @@
-// Flash-style softmax attention over (BH, N, D) bf16 tensors, shared by
-// relpos_attention.cu (SAM, with the decomposed rel-pos bias) and
-// flash_attention.cu (plain attention, DINOv2):
+// Flash-style softmax attention over (BH, N, D) bf16 tensors for Hopper
+// (sm_90a), shared by relpos_attention.cu (SAM, with the decomposed rel-pos
+// bias) and flash_attention.cu (plain attention: DINOv2, the SD1.5 UNet and
+// ControlNet):
 //   logits[t, u] = scale * q_t . k_u  (+ rel_h[t, u / kw] + rel_w[t, u % kw]
 //                                      when kRel)
 //   out[t]       = softmax_u(logits[t]) @ v
 //
-// One block per (bh, 64-query tile) walks 64-key tiles with an online
-// softmax in fp32.  QK^T and PV are WMMA bf16 16x16x16 products with fp32
-// accumulators; each of the 4 warps owns 16 query rows.  WMMA needs a
-// head dim that is a multiple of 16, so the Q/K/V tiles and the output
-// accumulator are DP = round_up(D, 16) wide in shared memory, with columns
-// D..DP-1 of Q, K and V zero (head_dim 40 -> 48: the zero columns add
-// nothing to q.k, and the scale stays the caller's D ** -0.5); only D
-// columns are rescaled and written out.  Keys past N in
-// the last tile are masked to -inf; the rel terms of the block's queries
-// are staged once in shared memory and added in the softmax pass, so the
-// (N, N) bias never exists.  The probabilities are rounded to bf16 for the
-// PV product, as in the plain versions.
+// One block of three warpgroups per (bh, 128-query tile).
+// * Warpgroup 0 is the producer.  One thread issues TMA loads: the Q tile
+//   once, then each 128-key K and V tile into a 3-stage ring guarded by
+//   full / empty mbarriers.  The tensor maps are built on the host per call
+//   and passed as __grid_constant__ parameters.
+// * Warpgroups 1 and 2 are consumers of 64 query rows each.  Per key tile:
+//   S = Q K^T is wgmma m64n128k16 with Q and K K-major in shared memory and
+//   S in fp32 registers; the online softmax runs on that accumulator
+//   fragment in registers (exp2 with scale * log2(e) folded in; a row's max
+//   and sum over the four lanes that share it); P is rounded to bf16, as in
+//   the plain versions, and is the A operand of O += P V (wgmma m64nDPk16,
+//   A from registers, V MN-major in shared memory), with O in fp32
+//   registers.  Then the warpgroup releases the stage.
+// * setmaxnreg moves registers from the producer to the consumers.
+//
+// Shared memory: each tile is cut into 16-column (32-byte) boxes, one TMA
+// box each, written with the 32-byte swizzle, which the wgmma descriptors
+// read back with the matching B32 layout.  The tensor maps carry the real
+// extents (D, N, BH), so TMA's zero fill pads head dim 40 to DP = 48 (QK^T
+// runs 3 k-steps; PV runs N = 48 and the last 8 columns are dropped) and
+// clears keys and queries past N.  Keys past N in the last tile are masked
+// to -inf in the softmax: zero keys are not -inf logits.  The rel terms of
+// the block's queries are staged once in shared memory in fp32, times
+// log2(e); each column's (u / kw, u % kw) comes from one division per tile,
+// stepped from column to column, not a division per logit.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encode function is
+                   // looked up at run time (no -lcuda)
 #include <math_constants.h>
-#include <mma.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
 // anonymous: each including source gets its own copy of the kernels
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;      // query rows per block (4 warps x 16)
-constexpr int BKV = 64;     // keys per tile
-constexpr int kMaxRel = 64; // kh, kw <= 64
-constexpr int kThreads = 128;
-constexpr int LDS_P = BKV + 8;   // bf16 P tile stride
-constexpr int LDS_S = BKV + 4;   // fp32 logits stride
+constexpr int BQ = 128;        // query rows per block: 2 consumer warpgroups
+constexpr int BKV = 128;       // keys per tile
+constexpr int kStages = 3;     // K/V ring depth
+constexpr int kMaxRel = 64;    // kh, kw <= 64
+constexpr int kRelLd = kMaxRel + 4;  // fp32 rel row stride (spreads banks)
+constexpr int kThreads = 384;  // producer + 2 consumer warpgroups
+constexpr int kBox = 16;       // columns per TMA box: 32 bytes
+constexpr int kBoxRow = 32;    // bytes per box row
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 * 40 +
+                                                        // 256 * 232 = 384 * 168
+constexpr float kLog2e = 1.4426950408889634f;
 
-// head dim padded to the WMMA depth of 16
+// head dim padded to the wgmma depth of 16
 template <int D>
 constexpr int kPadded = (D + 15) / 16 * 16;
 
 template <int D, bool kRel>
 struct Smem {
   static constexpr int DP = kPadded<D>;
-  static constexpr int LDQ = DP + 8;  // bf16 Q/K/V stride
-  static constexpr int LDO = DP + 4;  // fp32 O stride
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * BQ * LDQ;
-  static constexpr size_t v = k + sizeof(bf16) * BKV * LDQ;
-  static constexpr size_t s = v + sizeof(bf16) * BKV * LDQ;
-  static constexpr size_t p = s + sizeof(float) * BQ * LDS_S;
-  static constexpr size_t o = p + sizeof(bf16) * BQ * LDS_P;
-  static constexpr size_t rh = o + sizeof(float) * BQ * LDO;
-  static constexpr size_t rw = rh + (kRel ? sizeof(bf16) * BQ * kMaxRel : 0);
-  static constexpr size_t bytes =
-      rw + (kRel ? sizeof(bf16) * BQ * kMaxRel : 0);
+  static constexpr uint32_t kQBytes = BQ * DP * 2;
+  static constexpr uint32_t kTileBytes = BKV * DP * 2;  // one K or V tile
+  static constexpr uint32_t kRelBytes = kRel ? 4 * BQ * kRelLd : 0;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = q + kQBytes;
+  static constexpr uint32_t v = k + kStages * kTileBytes;
+  static constexpr uint32_t rh = v + kStages * kTileBytes;
+  static constexpr uint32_t rw = rh + kRelBytes;
+  // mbarriers: Q full, then full[kStages], then empty[kStages]
+  static constexpr uint32_t bar = rw + kRelBytes;
+  static constexpr uint32_t bytes = bar + 8 * (1 + 2 * kStages);
+  static constexpr uint32_t alloc = bytes + 1024;  // room to align the base
 };
 
-// rows [row0, row0 + 64) of a (N, D) bf16 matrix into a DP-wide smem tile:
-// zero past N and in the pad columns D..DP-1 (D % 8 == 0: a row is whole
-// 16-byte vectors)
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int N, int tid) {
-  static_assert(D % 8 == 0, "rows must be whole 16-byte vectors");
-  constexpr int DP = kPadded<D>;
-  constexpr int kVec = DP / 8;  // 16-byte vectors per smem row
-  constexpr int LD = DP + 8;
-  for (int i = tid; i < 64 * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < N && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the kBox x rows box at (column c, row r, head bh) of a tensor map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c, int r, int bh, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r), "r"(bh)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for the 32-byte swizzle (layout type 3);
+// lbo and sbo in bytes.  K-major: rows of 32 bytes, sbo = 8 rows = 256,
+// lbo unused (1).  MN-major: 16 columns x 8 rows of 32 bytes per core
+// block, lbo = the next 16 columns (the next box), sbo = the next 8 rows.
+__device__ __forceinline__ uint64_t desc_b32(uint32_t addr, uint32_t lbo,
+                                             uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keep the compiler from reading accumulators before the wait above
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (bf16 in, fp32 accumulators)
+// ---------------------------------------------------------------------------
+
+// d (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory;
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A[64 x 16] B[16 x 48]: A in registers (bf16 pairs), B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A[64 x 16] B[16 x 80]: A in registers (bf16 pairs), B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(DP == 48 || DP == 64 || DP == 80, "no PV instance");
+  if constexpr (DP == 48)
+    wgmma_rs_n48(d, a, db);
+  else if constexpr (DP == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n80(d, a, db);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// Accumulator fragment of wgmma m64nN (f32), per thread of a warpgroup:
+// warp w, lane l hold rows 16w + l/4 ("row 0") and 16w + l/4 + 8 ("row 1");
+// for each 8-column group g, d[4g + e] is (row 0, 8g + 2(l%4) + e) and
+// d[4g + 2 + e] is (row 1, the same column), e = 0, 1.  The A fragment of
+// m64nNk16 has the same layout for 16 columns, so the bf16 pairs of S's
+// groups 2t and 2t + 1 are the A operand of PV's k-step t as they stand.
+template <int D, bool kRel>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const bf16* __restrict__ rel_h,
+                      const bf16* __restrict__ rel_w, bf16* __restrict__ out,
+                      int N, int kh, int kw, float scale_log2) {
+  using L = Smem<D, kRel>;
+  constexpr int DP = L::DP;
+  constexpr int kBoxes = DP / kBox;
+  static_assert(BKV == 128, "S is one m64n128 accumulator");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::bar;
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_empty = bar_q + 8 * (1 + kStages);  // + 8 * stage
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_tiles = (N + BKV - 1) / BKV;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);  // one arrival per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int b = 0; b < kBoxes; ++b)
+        tma_load(base + L::q + b * BQ * kBoxRow, &tm_q, b * kBox, q0, bh,
+                 bar_q);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::kTileBytes);
+        const uint32_t k_dst = base + L::k + s * L::kTileBytes;
+        const uint32_t v_dst = base + L::v + s * L::kTileBytes;
+        for (int b = 0; b < kBoxes; ++b) {
+          tma_load(k_dst + b * BKV * kBoxRow, &tm_k, b * kBox, j * BKV, bh,
+                   bar_full + 8 * s);
+          tma_load(v_dst + b * BKV * kBoxRow, &tm_v, b * kBox, j * BKV, bh,
+                   bar_full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32, cq = lane % 4;
+    const int r0 = cw * 64 + (t / 32) * 16 + lane / 4;  // row 0 in the block
+    float* sRh = reinterpret_cast<float*>(smem + L::rh);
+    float* sRw = reinterpret_cast<float*>(smem + L::rw);
+
+    if constexpr (kRel) {
+      // this warpgroup's 64 rows of rel_h / rel_w in fp32, times log2(e);
+      // zero past N and past kh / kw
+      for (int i = t; i < 64 * kMaxRel; i += 128) {
+        const int r = cw * 64 + i / kMaxRel, c = i % kMaxRel;
+        const int tq = q0 + r;
+        const size_t row = static_cast<size_t>(bh) * N + tq;
+        const bool ok = tq < N;
+        sRh[r * kRelLd + c] =
+            (ok && c < kh) ? __bfloat162float(rel_h[row * kh + c]) * kLog2e
+                           : 0.f;
+        sRw[r * kRelLd + c] =
+            (ok && c < kw) ? __bfloat162float(rel_w[row * kw + c]) * kLog2e
+                           : 0.f;
+      }
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+    }
+
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+    const uint32_t q_base = base + L::q + cw * 64 * kBoxRow;
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+      const uint32_t k_base = base + L::k + s * L::kTileBytes;
+      const uint32_t v_base = base + L::v + s * L::kTileBytes;
+
+      // S = Q K^T over kBoxes k-steps of 16
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < kBoxes; ++b)
+        wgmma_ss_n128(sc, desc_b32(q_base + b * BQ * kBoxRow, 16, 256),
+                      desc_b32(k_base + b * BKV * kBoxRow, 16, 256), b > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // logits in log2 units, in place
+      const int kv0 = j * BKV;
+      if constexpr (kRel) {
+        int h = (kv0 + 2 * cq) / kw;
+        int w = kv0 + 2 * cq - h * kw;
+#pragma unroll
+        for (int g = 0; g < 16; ++g) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int hc = min(h, kh - 1);  // columns past N: masked below
+            sc[4 * g + e] = fmaf(sc[4 * g + e], scale_log2,
+                                 sRh[r0 * kRelLd + hc] + sRw[r0 * kRelLd + w]);
+            sc[4 * g + 2 + e] =
+                fmaf(sc[4 * g + 2 + e], scale_log2,
+                     sRh[(r0 + 8) * kRelLd + hc] + sRw[(r0 + 8) * kRelLd + w]);
+            if (++w == kw) {
+              w = 0;
+              ++h;
+            }
+          }
+          w += 6;  // from column 8g + 2cq + 2 to 8(g + 1) + 2cq
+          while (w >= kw) {
+            w -= kw;
+            ++h;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+      }
+      if (kv0 + BKV > N) {
+#pragma unroll
+        for (int g = 0; g < 16; ++g)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (kv0 + 8 * g + 2 * cq + e >= N)
+              sc[4 * g + e] = sc[4 * g + 2 + e] = -CUDART_INF_F;
+      }
+
+      // online softmax: row max over the four lanes of a row
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int g = 0; g < 16; ++g) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * g], sc[4 * g + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * g + 2], sc[4 * g + 3]));
+      }
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);  // 0 on tile 0
+      m0 = mn0;
+      m1 = mn1;
+      uint32_t p[32];  // bf16 pairs: PV's A fragments
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int g = 0; g < 16; ++g) {
+        const float p00 = ex2(sc[4 * g] - mn0), p01 = ex2(sc[4 * g + 1] - mn0);
+        const float p10 = ex2(sc[4 * g + 2] - mn1);
+        const float p11 = ex2(sc[4 * g + 3] - mn1);
+        s0 += p00 + p01;
+        s1 += p10 + p11;
+        p[2 * g] = pack_bf16(p00, p01);
+        p[2 * g + 1] = pack_bf16(p10, p11);
+      }
+      l0 = l0 * a0 + s0;  // this thread's share; summed over lanes at the end
+      l1 = l1 * a1 + s1;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+
+      // O += P V over 8 k-steps of 16 keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        wgmma_pv<DP>(o, a,
+                     desc_b32(v_base + kk * 16 * kBoxRow, BKV * kBoxRow, 256));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      if (t == 0) mbar_arrive(bar_empty + 8 * s);  // stage read: release it
+    }
+
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const int t0 = q0 + r0, t1 = t0 + 8;
+    bf16* ob = out + static_cast<size_t>(bh) * N * D;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      const int c = 8 * i + 2 * cq;
+      if (c < D) {
+        if (t0 < N)
+          *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(t0) * D +
+                                             c) =
+              __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+        if (t1 < N)
+          *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(t1) * D +
+                                             c) =
+              __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+      }
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// 3-D map over a (BH, N, D) bf16 tensor with kBox x rows boxes and the
+// 32-byte swizzle; reads outside (D, N, BH) fill with zeros
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int BH, int N, int D,
+                     int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(N) * D * 2};
+  const cuuint32_t box[3] = {kBox, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Lift the instance's dynamic shared memory limit, once per device (not on
+// every launch: host time counts against the short calls)
 template <int D, bool kRel>
-__global__ void __launch_bounds__(kThreads)
-attention_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ rel_h,
-                      const bf16* __restrict__ rel_w, bf16* __restrict__ out,
-                      int N, int kh, int kw, float scale) {
-  using L = Smem<D, kRel>;
-  constexpr int DP = L::DP, LDQ = L::LDQ, LDO = L::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sO = reinterpret_cast<float*>(smem + L::o);
-  bf16* sRh = reinterpret_cast<bf16*>(smem + L::rh);
-  bf16* sRw = reinterpret_cast<bf16*>(smem + L::rw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const bf16* qb = q + bh * N * D;
-  const bf16* kb = k + bh * N * D;
-  const bf16* vb = v + bh * N * D;
-
-  load_tile<D>(sQ, qb, q0, N, tid);
-  if constexpr (kRel) {
-    for (int i = tid; i < BQ * kMaxRel; i += kThreads) {
-      const int r = i / kMaxRel, c = i % kMaxRel;
-      const int t = q0 + r;
-      const bool ok = t < N;
-      sRh[i] = (ok && c < kh) ? rel_h[(bh * N + t) * kh + c]
-                              : __float2bfloat16(0.f);
-      sRw[i] = (ok && c < kw) ? rel_w[(bh * N + t) * kw + c]
-                              : __float2bfloat16(0.f);
-    }
-  }
-  for (int i = tid; i < BQ * LDO; i += kThreads) sO[i] = 0.f;
-
-  // softmax ownership: lane pair (2r, 2r+1) owns row r of the warp's 16,
-  // each lane half of the 64 tile columns and half of the D output columns
-  const int r = lane >> 1, half = lane & 1;
-  const int row = warp * 16 + r;
-  float m = -CUDART_INF_F, l = 0.f;
-
-  for (int kv0 = 0; kv0 < N; kv0 += BKV) {
-    __syncthreads();  // previous tile's K/V no longer read
-    load_tile<D>(sK, kb, kv0, N, tid);
-    load_tile<D>(sV, vb, kv0, N, tid);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(fb, sK + j * 16 * LDQ + kk, LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * LDS_S + j * 16, acc, LDS_S,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this tile's 64 keys
-    float s[32];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = half * 32 + i;
-      const int u = kv0 + c;
-      float val = -CUDART_INF_F;
-      if (u < N) {
-        if constexpr (kRel)
-          val = sS[row * LDS_S + c] * scale +
-                __bfloat162float(sRh[row * kMaxRel + u / kw]) +
-                __bfloat162float(sRw[row * kMaxRel + u % kw]);
-        else
-          val = sS[row * LDS_S + c] * scale;
-      }
-      s[i] = val;
-      mx = fmaxf(mx, val);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = __expf(m - m_new);  // 0 on the first tile
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = __expf(s[i] - m_new);
-      sum += p;
-      sP[row * LDS_P + half * 32 + i] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-#pragma unroll 4
-    for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d)
-      sO[row * LDO + d] *= alpha;
-    __syncwarp();
-
-    // O += P V
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + warp * 16 * LDO + j * 16, LDO,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + warp * 16 * LDS_P + kk, LDS_P);
-        wmma::load_matrix_sync(fb, sV + kk * LDQ + j * 16, LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + warp * 16 * LDO + j * 16, acc, LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  const int t = q0 + row;
-  if (t < N) {
-    const float inv = 1.f / l;
-    bf16* ob = out + (bh * N + t) * D;
-    for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d)
-      ob[d] = __float2bfloat16(sO[row * LDO + d] * inv);
-  }
+cudaError_t allow_smem() {
+  static std::atomic<int> set_for{-1};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || set_for.load() == device) return err;
+  err = cudaFuncSetAttribute(attention_tile_kernel<D, kRel>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Smem<D, kRel>::alloc));
+  if (err == cudaSuccess) set_for.store(device);
+  return err;
 }
 
 template <int D, bool kRel>
@@ -218,17 +570,21 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v,
                              const void* rel_h, const void* rel_w, void* out,
                              int BH, int N, int kh, int kw, float scale,
                              cudaStream_t stream) {
-  const size_t bytes = Smem<D, kRel>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_tile_kernel<D, kRel>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        make_map(&maps[i], src[i], BH, N, D, i == 0 ? BQ : BKV);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err = allow_smem<D, kRel>();
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BQ - 1) / BQ, BH);
-  attention_tile_kernel<D, kRel><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(rel_h),
+  attention_tile_kernel<D, kRel>
+      <<<grid, kThreads, Smem<D, kRel>::alloc, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const bf16*>(rel_h),
       static_cast<const bf16*>(rel_w), static_cast<bf16*>(out), N, kh, kw,
-      scale);
+      scale * kLog2e);
   return cudaGetLastError();
 }
 

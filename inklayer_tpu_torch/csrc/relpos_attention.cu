@@ -7,23 +7,20 @@
 // _window_block_kernel / _window_band_body (sam_window_block_attention:
 // 14x14 windows, 196 tokens) and _global_aug_kernel (sam_global_attention2:
 // 4096 tokens), and covers _global_relpos_kernel (sam_global_attention, any
-// kh/kw) and _window_relpos_kernel (sam_window_attention).  One kernel
+// kh/kw), _window_relpos_kernel (sam_window_attention) and
+// _flash_relpos_kernel (flash_attention with rel_h/rel_w).  One kernel
 // serves all of them: windows are a batch of BH = windows * heads.
 //
-// Bound on the H100: tensor-core throughput in principle — the global form
-// is 2 * 2 * 16 * 4096^2 * 80 = 86 GFLOP per call against 42 MB of q, k,
-// v, out — and in this first version the shared-memory round trips of the
-// logits and of the output accumulator, which the softmax needs because
-// WMMA fragments give no element access.  The TPU kernel kept one head's
-// whole K/V (1.3 MB) in VMEM and took a full-row softmax; that does not
-// fit in 227 KB of shared memory, so this kernel is flash-style: one block
-// per (bh, 64-query tile) walks 64-key tiles with an online softmax in
-// fp32.  QK^T and PV are WMMA bf16 16x16x16 products with fp32
-// accumulators; each of the 4 warps owns 16 query rows.  The rel terms of
-// the block's queries are staged once in shared memory and added to the
-// logits in the softmax pass, so the (N, N) bias never exists.  The loop
-// lives in attention_tile.cuh and is shared with flash_attention.cu
-// (kRel = false there).
+// Bound on the H100: tensor-core throughput — the global form is
+// 2 * 2 * 16 * 4096^2 * 80 = 86 GFLOP per call against 42 MB of q, k, v,
+// out — with the exponentials and the two rel-term reads per logit beside
+// it.  The TPU kernel kept one head's whole K/V (1.3 MB) in VMEM and took
+// a full-row softmax; that does not fit in 227 KB of shared memory, so
+// this kernel streams 128-key tiles with an online softmax in fp32 (the
+// loop of attention_tile.cuh: wgmma products, softmax in registers, a TMA
+// ring).  The rel terms of the block's 128 queries are staged once in
+// shared memory and added to the logits in the softmax, so the (N, N) bias
+// never exists.
 #include "attention_tile.cuh"
 
 IK_EXPORT int ik_relpos_attention(const void* q, const void* k, const void* v,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Hold the port's flash-attention kernel at head_dim 40 (tiles padded to
-48 columns in shared memory) against three altered copies of it, to show
-which faults chip_smoke.py's limits catch.
+"""Hold the port's flash-attention kernel at head_dim 40 (boxes padded to
+48 columns in shared memory by TMA's zero fill) against three altered
+copies of it, to show which faults chip_smoke.py's limits catch.
 
     python3 scripts/torch_flash_padding_check.py [--seeds 3]
 
@@ -9,15 +9,24 @@ Copies ``inklayer_tpu_torch/csrc`` into ``build/flash_padding_check/``,
 alters each copy there, builds every copy with the port's nvcc flags and
 runs ``ik_flash_attention`` of each library on the same seeded bf16
 inputs at (16, 9216, 40) (the UNet's level 0 for one layer with CFG) and
-(2, 70, 40) (a last key tile of 6), against the plain version in fp32:
+(2, 70, 40) (70 keys of one 128-key tile), against the plain version in
+fp32:
 
 * ``kernel``: the sources as they are;
 * ``scale 48^-0.5``: the head-dim-40 instance scaled by the padded
   width's 48 ** -0.5 instead of the caller's 40 ** -0.5;
-* ``pad columns not zeroed``: the tile loads write only the 40 data
-  columns, leaving columns 40..47 of the shared-memory tiles as they were;
-* ``pad columns from the next row``: the tile loads read 48 columns at
-  the row stride of 40, so columns 40..47 hold the next row's first 8.
+* ``map width 48 (pad from the next row)``: the tensor maps' column
+  extent is the padded 48 instead of the real 40, at the row stride of
+  40, so TMA fills columns 40..47 with the next row's first 8;
+* ``out-of-bounds fill NaN (pad not zeroed)``: the tensor maps fill what
+  lies outside (D, N, BH) with NaN instead of zeros, so the pad columns
+  (and the keys past N) are not zero.
+
+A copy whose tile loads write only the 40 data columns (``pad columns not
+zeroed``, a fault of the earlier WMMA loop, which zeroed them itself) no
+longer applies: no code of the kernel writes the pad columns, TMA's
+out-of-bounds fill does on every load; its counterpart is the NaN fill
+above.
 
 Prints, per copy, shape and seed, the max abs and relative L2 error and
 whether chip_smoke's limits hold (every element within atol = rtol =
@@ -46,12 +55,12 @@ VARIANTS = {
         "flash_attention.cu",
         r"(launch_attention<40, false>\([^;]*?)scale, s\)",
         r"\1rsqrtf(48.f), s)")],
-    "pad columns not zeroed": [(
-        "attention_tile.cuh", r"constexpr int kVec = DP / 8;",
-        "constexpr int kVec = D / 8;")],
-    "pad columns from the next row": [(
-        "attention_tile.cuh", r"if \(row0 \+ r < N && c < D\)",
-        "if (row0 + r < N)")],
+    "map width 48 (pad from the next row)": [(
+        "attention_tile.cuh", r"\{static_cast<cuuint64_t>\(D\),",
+        "{static_cast<cuuint64_t>((D + 15) / 16 * 16),")],
+    "out-of-bounds fill NaN (pad not zeroed)": [(
+        "attention_tile.cuh", r"CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE",
+        "CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA")],
 }
 SHAPES = ((16, 9216), (2, 70))
 

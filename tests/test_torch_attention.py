@@ -1,14 +1,16 @@
 """Port parity: attention ops (inklayer_tpu_torch.ops.attention) against
 the JAX package: sdpa, the rel-term helpers, the plain rel-pos attention
 against the Pallas SAM kernels in interpret mode
-(sam_window_block_attention, sam_global_attention2, and
-sam_global_attention for a kh = kw != 64 grid), and the plain flash
-attention against the Pallas ``flash_attention`` in interpret mode.
+(sam_window_block_attention, sam_global_attention2, sam_global_attention
+for a kh = kw != 64 grid, sam_window_attention on partitioned windows, and
+flash_attention with rel_h/rel_w), and the plain flash attention against
+the Pallas ``flash_attention`` in interpret mode.
 
 Tolerances: fp32 ops atol = rtol = 1e-4; the flash attention atol 2e-5 in
 fp32; kernels that round operands to bf16 inside (the window kernel's aug
 matmul, sam_global_attention's bf16 rel expansion) at bf16 tolerance
-atol = rtol = 2e-2.
+atol = rtol = 2e-2.  sam_window_attention rounds its rel terms to bf16 too;
+its test draws them bf16-exact, so it holds to the fp32 tolerance.
 """
 
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from inklayer_tpu.models.sam.image_encoder import _gather_rel_pos, _rel_term
 from inklayer_tpu.ops.attention import (attention, flash_attention,
                                         sam_global_attention,
                                         sam_global_attention2,
+                                        sam_window_attention,
                                         sam_window_block_attention, sdpa)
 from inklayer_tpu_torch.ops import attention as T
 
@@ -139,6 +142,57 @@ def test_relpos_plain_matches_global_attention_other_grid(rng):
     want = np.asarray(out2).reshape(n, heads, 128)[..., :hd].transpose(1, 0, 2)
     got = T.relpos_attention(_t(q), _t(k), _t(v), _t(rh), _t(rw), scale)
     np.testing.assert_allclose(got.numpy(), want, **BF16)
+
+
+@pytest.mark.parametrize("kh,kw,hd", [(8, 8, 32), (6, 10, 80)])
+def test_relpos_plain_matches_flash_relpos_kernel(rng, kh, kw, hd):
+    """flash_attention with rel_h/rel_w (the Pallas _flash_relpos_kernel,
+    whole K/V resident, rel bias expanded by 0/1 matmuls) is the port's
+    relpos_attention on the same (BH, N, D) layout."""
+    bh, n = 2, kh * kw
+    q, k, v = (rng.standard_normal((bh, n, hd)).astype(np.float32)
+               for _ in range(3))
+    rh = rng.standard_normal((bh, n, kh)).astype(np.float32)
+    rw = rng.standard_normal((bh, n, kw)).astype(np.float32)
+    want = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           rel_h=jnp.asarray(rh), rel_w=jnp.asarray(rw),
+                           kh=kh, kw=kw, block_q=32, interpret=True)
+    got = T.relpos_attention(_t(q), _t(k), _t(v), _t(rh), _t(rw),
+                             hd ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def _bf16_exact(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def test_relpos_plain_matches_window_attention_kernel(rng):
+    """sam_window_attention takes the qkv dense output per window, (nw, n,
+    3 * heads * hd), and head-blocked rel terms, (nw, n, heads * kh|kw);
+    un-packed to (nw * heads, n, ...) they are the port's relpos_attention
+    inputs.  kh != kw; the kernel rounds the rel terms to bf16, so they are
+    drawn bf16-exact."""
+    nw, heads, hd, kh, kw = 3, 2, 16, 7, 9
+    n, c = kh * kw, heads * hd
+    qkv = rng.standard_normal((nw, n, 3 * c)).astype(np.float32)
+    rh = _bf16_exact(rng.standard_normal((nw, n, heads * kh)).astype(
+        np.float32))
+    rw = _bf16_exact(rng.standard_normal((nw, n, heads * kw)).astype(
+        np.float32))
+    scale = hd ** -0.5
+    want = sam_window_attention(jnp.asarray(qkv), jnp.asarray(rh),
+                                jnp.asarray(rw), scale=scale, kh=kh, kw=kw,
+                                heads=heads, head_dim=hd, interpret=True)
+
+    def heads_first(a, width):  # (nw, n, heads * width) -> (nw*heads, n, w)
+        return _t(a.reshape(nw, n, heads, width).transpose(0, 2, 1, 3)
+                  .reshape(nw * heads, n, width))
+
+    q, k, v = (heads_first(qkv[..., i * c:(i + 1) * c], hd) for i in range(3))
+    got = T.relpos_attention(q, k, v, heads_first(rh, kh),
+                             heads_first(rw, kw), scale)
+    got = got.numpy().reshape(nw, heads, n, hd).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.reshape(nw, n, c), np.asarray(want), **F32)
 
 
 def test_relpos_attention_refuses_bad_tiling():

@@ -1,7 +1,9 @@
 """Port parity: multi-scale deformable attention
 (inklayer_tpu_torch.ops.deformable) against the JAX package: the fp64
 numpy oracle ms_deform_attn_ref, the fp32 gather formulation, and the
-Pallas fused-v3 and tiled kernels in interpret mode.
+Pallas kernels in interpret mode: fused v3 and tiled (the production
+paths), and the per-level (v1, v2) and all-heads fused v4 kernels, which
+no caller reaches but which compute the same function.
 
 Tolerances: fp32 atol = rtol = 1e-5 against the fp64 oracle and the gather
 path; the Pallas kernels sample bf16 values with bf16 weights, so against
@@ -10,9 +12,11 @@ them atol = rtol = 2e-2.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from inklayer_tpu.ops.deformable import (_ms_deform_attn_gather,
+                                         _ms_deform_attn_pallas,
                                          _ms_deform_attn_pallas_fused,
                                          _ms_deform_attn_pallas_tiled,
                                          _tiled_plan, ms_deform_attn_ref)
@@ -62,6 +66,31 @@ def test_plain_matches_pallas_fused_v3_interpret(rng):
     want = _ms_deform_attn_pallas_fused(
         jnp.asarray(value), shapes, jnp.asarray(locs), jnp.asarray(wts),
         block_q=8, interpret=True, kernel_version=3)
+    np.testing.assert_allclose(_port(value, shapes, locs, wts),
+                               np.asarray(want), **BF16)
+
+
+def test_plain_matches_pallas_fused_v4_interpret(rng):
+    """kernel_version=4: all heads per program (_pallas_fused_allheads_kernel,
+    the transpose-free host layouts)."""
+    shapes = ((10, 12), (5, 6))
+    value, locs, wts = _case(rng, 1, 2, 8, shapes, 9, 4)
+    want = _ms_deform_attn_pallas_fused(
+        jnp.asarray(value), shapes, jnp.asarray(locs), jnp.asarray(wts),
+        block_q=8, interpret=True, kernel_version=4)
+    np.testing.assert_allclose(_port(value, shapes, locs, wts),
+                               np.asarray(want), **BF16)
+
+
+@pytest.mark.parametrize("kernel_version", [1, 2])
+def test_plain_matches_pallas_per_level_interpret(rng, kernel_version):
+    """impl="pallas_per_level": one pallas_call per level
+    (_pallas_level_kernel, _pallas_level_kernel_v2), summed outside."""
+    shapes = ((10, 12), (5, 6), (3, 4))
+    value, locs, wts = _case(rng, 1, 2, 8, shapes, 9, 2)
+    want = _ms_deform_attn_pallas(
+        jnp.asarray(value), shapes, jnp.asarray(locs), jnp.asarray(wts),
+        block_q=8, interpret=True, kernel_version=kernel_version)
     np.testing.assert_allclose(_port(value, shapes, locs, wts),
                                np.asarray(want), **BF16)
 

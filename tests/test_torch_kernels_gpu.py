@@ -41,17 +41,29 @@ def _f32(ts):
     return [t.float() for t in ts]
 
 
-@pytest.mark.parametrize("bh,kh,d", [(8, 14, 80), (4, 64, 80), (6, 8, 64),
-                                     (2, 48, 80)])
-def test_relpos_attention_kernel(gen, bh, kh, d):
-    n = kh * kh
+def _rel_l2(got, want):
+    return float((got.float() - want).norm() / want.norm())
+
+
+# N = kh * kw: one key (1), partial query and key tiles (70, 100, 196,
+# 1369), kh != kw (8 x 12, 7 x 10), odd BH, SAM's windows (14 x 14) and
+# global grids (64 x 64 at 1024^2, 48 x 48 at 768^2)
+@pytest.mark.parametrize("bh,kh,kw,d", [
+    (8, 14, 14, 80), (4, 64, 64, 80), (6, 8, 8, 64), (2, 48, 48, 80),
+    (3, 8, 12, 64), (1, 1, 1, 80), (3, 7, 10, 64), (5, 10, 10, 80),
+    (3, 14, 14, 64), (3, 37, 37, 80)])
+def test_relpos_attention_kernel(gen, bh, kh, kw, d):
+    """Also to a relative L2 error <= 5e-3: a kernel that left the tail
+    keys unmasked scales whole rows, which hides inside the rtol."""
+    n = kh * kw
     args = [_randn(gen, bh, n, d) for _ in range(3)] + \
-        [_randn(gen, bh, n, kh) for _ in range(2)]
+        [_randn(gen, bh, n, kh), _randn(gen, bh, n, kw)]
     before = _kernels.LAUNCHES["relpos_attention"]
     got = attention.relpos_attention(*args, d ** -0.5)
     assert _kernels.LAUNCHES["relpos_attention"] == before + 1
     want = attention.relpos_attention_plain(*_f32(args), d ** -0.5)
     torch.testing.assert_close(got.float(), want, **TOL)
+    assert _rel_l2(got, want) <= 5e-3
 
 
 @pytest.mark.parametrize("t,c,h", [(512, 128, 512), (1024, 1280, 5120)])
@@ -92,14 +104,20 @@ def test_ms_deform_attn_kernel(gen, lq):
     torch.testing.assert_close(got.float(), want, **TOL)
 
 
+# N below one 128-key tile (1, 64, 70, 100), exactly one (128), with
+# partial query and key tiles (196, 1370) and the production shapes; odd BH
 @pytest.mark.parametrize("bh,n,d", [(12, 1370, 64), (3, 64, 64),
                                     (2, 100, 64), (1, 1, 64),
                                     (4, 2304, 40), (2, 70, 40), (1, 1, 40),
-                                    (4, 2304, 80), (2, 100, 80)])
+                                    (4, 2304, 80), (2, 100, 80),
+                                    (3, 100, 40), (3, 196, 40),
+                                    (3, 1370, 40), (3, 70, 64), (5, 196, 64),
+                                    (1, 1, 80), (3, 70, 80), (3, 196, 80),
+                                    (3, 1370, 80), (1, 128, 40)])
 def test_flash_attention_kernel(gen, bh, n, d):
-    """head_dim 40 runs on tiles padded to 48 columns: a kernel that
-    scaled by 48 ** -0.5 or left the pad columns unzeroed fails the L2
-    limit."""
+    """head_dim 40 runs on boxes padded to 48 columns by TMA's zero fill: a
+    kernel that scaled by 48 ** -0.5 or read the pad columns from the next
+    row fails the L2 limit."""
     q, k, v = (_randn(gen, bh, n, d) for _ in range(3))
     before = _kernels.launch_counts()
     got = attention.flash_attention(q, k, v)
@@ -110,7 +128,7 @@ def test_flash_attention_kernel(gen, bh, n, d):
     want = attention.flash_attention_plain(*_f32([q, k, v]), d ** -0.5)
     torch.testing.assert_close(got.float(), want, **TOL)
     # a uniform scaling (unmasked padded keys) hides inside the rtol above
-    assert float((got.float() - want).norm() / want.norm()) <= 5e-3
+    assert _rel_l2(got, want) <= 5e-3
 
 
 def _blob_stack(gen, n, h, w):
