@@ -7,8 +7,8 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
              source, all started together, sm_90a, ``-Xptxas -v``) and
-             print each attention instance's registers, spills and shared
-             memory;
+             print each attention and GEMM instance's registers, spills and
+             shared memory;
 2. kernels — each kernel against its plain PyTorch version at the shapes
              of the default run and of the inpainting path, inputs seeded
              random bf16 with the plain version in fp32 on the card (TF32
@@ -16,10 +16,16 @@ Phases, each of which raises on failure (exit code != 0):
              kernels on a seeded bool mask stack, exactly; median times
              from CUDA events of the kernel, its plain version and, where
              one PyTorch call computes the same function, that call (timed
-             only: nothing in the port calls it); each case's bound, the
-             larger of its bytes over the HBM rate and its operations over
-             the peak rate for their type (H100 SXM data sheet), its share
-             of that bound and its ratio to the library call;
+             only: nothing in the port calls it); for the kernel and the
+             library call also the device time per call (10 calls captured
+             in a CUDA graph and replayed: the host's part drops out) and
+             the wall time per call of 100 calls issued back to back, best
+             of 5 (the larger of the host's cost per call and the device
+             time); each
+             case's bound, the larger of its bytes over the HBM rate and
+             its operations over the peak rate for their type (H100 SXM
+             data sheet), its share of that bound and its ratio to the
+             library call;
 3. slice   — the default run at full width (GroundingDINO SwinT-OGC at the
              800^2 bucket, SAM ViT-H at 1024^2, Depth-Anything-V2 ViT-B at
              518^2, the refine stages; seeded placeholder weights, bf16)
@@ -167,6 +173,65 @@ def cuda_median_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 10, iters: int = 10):
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed, median of ``iters`` replays over ``reps``; None when the call
+    cannot be captured (it synchronises with the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError:  # a measurement only: the call was checked above
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def back_to_back_ms(fn, calls: int = 100, runs: int = 5) -> float:
+    """Wall time per call of ``calls`` calls issued back to back with one
+    synchronise at the end, the least of ``runs`` runs (the host is shared:
+    the least is the call's own cost): the larger of the host's cost per
+    call and the device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / calls)
+    return best
+
+
+def _fmt(ms) -> str:
+    return "not captured" if ms is None else f"{ms:.4f} ms"
+
+
 def draw_sketch(path: str, size: int = 750) -> None:
     """Deterministic line sketch: boxes, a shaded block, a diagonal."""
     from PIL import Image
@@ -219,10 +284,32 @@ def bound(ops: float, nbytes: float, peak: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _record(results, kernel, case, err, ms, plain_ms, bnd, library_ms):
+def _record(results, kernel, case, err, ms, plain_ms, bnd, library_ms,
+            split):
     results.setdefault(kernel, []).append(
         {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms})
+         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
+         **split})
+
+
+def _split(fn, library):
+    """Device time (CUDA graph) and back-to-back time per call of the
+    kernel's wrapper and of the library call (None where there is none)."""
+    out = {"device_ms": graph_ms(fn), "b2b_ms": back_to_back_ms(fn),
+           "library_device_ms": None, "library_b2b_ms": None}
+    if library is not None:
+        out["library_device_ms"] = graph_ms(library)
+        out["library_b2b_ms"] = back_to_back_ms(library)
+    return out
+
+
+def _split_text(split) -> str:
+    text = (f"  device {_fmt(split['device_ms'])}  back-to-back "
+            f"{split['b2b_ms']:.4f} ms")
+    if split["library_b2b_ms"] is not None:
+        text += (f"  library device {_fmt(split['library_device_ms'])}  "
+                 f"back-to-back {split['library_b2b_ms']:.4f} ms")
+    return text
 
 
 def _kernel_case(results, kernel, case, fn, plain, args, atol, rtol,
@@ -241,13 +328,14 @@ def _kernel_case(results, kernel, case, fn, plain, args, atol, rtol,
     plain_ms = cuda_median_ms(lambda: plain(*args))
     plain32_ms = cuda_median_ms(lambda: plain(*f32))
     library_ms = None if library is None else cuda_median_ms(library)
-    _record(results, kernel, case, err, ms, plain_ms, bnd, library_ms)
+    split = _split(lambda: fn(*args), library)
+    _record(results, kernel, case, err, ms, plain_ms, bnd, library_ms, split)
     lib = "none" if library_ms is None else (
         f"{library_ms:.4f} ms (kernel / library {ms / library_ms:.2f})")
     log(f"  {kernel:19s} {case:30s} max_abs_err {err:.3e}  rel_l2 {rel:.3e}"
         f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  plain(fp32) "
         f"{plain32_ms:.4f} ms  library {lib}  bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}; {bnd[0] / ms:.3f} of it)")
+        f"({bnd[1]}; {bnd[0] / ms:.3f} of it);" + _split_text(split))
 
 
 def _exact_case(results, kernel, case, fn, plain, args, bnd):
@@ -266,11 +354,12 @@ def _exact_case(results, kernel, case, fn, plain, args, bnd):
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     ms = cuda_median_ms(lambda: fn(*args))
     plain_ms = cuda_median_ms(lambda: plain(*args), iters=5, warmup=1)
-    _record(results, kernel, case, 0.0, ms, plain_ms, bnd, None)
+    split = _split(lambda: fn(*args), None)
+    _record(results, kernel, case, 0.0, ms, plain_ms, bnd, None, split)
     log(f"  {kernel:19s} {case:30s} exact  kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  library none  bound {bnd[0]:.4f} ms "
         f"({bnd[1]}; no fp32 variant: bool in, bool/int32 out); kernel "
-        f"peak memory above its inputs {peak:.1f} MiB")
+        f"peak memory above its inputs {peak:.1f} MiB;" + _split_text(split))
 
 
 def mask_stack(gen, n: int = 64, h: int = 750, w: int = 750):
@@ -346,8 +435,10 @@ def phase_kernels(results: dict) -> None:
 
     # fused MLP at SAM ViT-H: T=4096, C=1280, H=5120, weights ~ 1/sqrt(fan_in).
     # Tolerance: the hidden activation is rounded to bf16 (as on the TPU)
-    # and the output is bf16 -> atol 2e-2, rtol 2e-2.  Library: F.linear ->
-    # F.gelu -> F.linear (cuBLAS).
+    # and the output is bf16 -> atol 2e-2, rtol 2e-2, and relative L2 <=
+    # 5e-3.  Library: F.linear -> F.gelu -> F.linear (cuBLAS).  Then fc2
+    # alone (the GEMM launch with the bias epilogue, 128 x 160 tiles) on a
+    # seeded hidden activation; library F.linear.
     t, c, h = 4096, 1280, 5120
     args = [randn(t, c), randn(h, c, std=c ** -0.5), randn(h, std=0.1),
             randn(c, h, std=h ** -0.5), randn(c, std=0.1)]
@@ -357,7 +448,14 @@ def phase_kernels(results: dict) -> None:
         bound(4.0 * t * c * h, 2.0 * (2 * t * c + 2 * h * c + h + c),
               PEAK_BF16),
         lambda: F.linear(F.gelu(F.linear(args[0], args[1], args[2])),
-                         args[3], args[4]))
+                         args[3], args[4]), rel_l2=5e-3)
+    fc2 = [randn(t, h, std=0.5), args[3], args[4]]
+    _kernel_case(
+        results, "mlp_gelu", "fc2 (4096,5120)->(1280)",
+        lambda a, w, b: mlp._linear_bias_act(a, w, b, gelu=False), F.linear,
+        fc2, 2e-2, 2e-2,
+        bound(2.0 * t * h * c, 2.0 * (t * h + h * c + c + t * c), PEAK_BF16),
+        lambda: F.linear(*fc2), rel_l2=5e-3)
 
     # LayerNorm: SAM (4096, 1280) with and without the residual, Swin stage-0
     # (40000, 96), DINOv2 (1370, 768), and the UNet's transformer blocks at
@@ -1031,32 +1129,51 @@ def ptxas_entries(log_text: str) -> dict:
     return out
 
 
-def attention_resources() -> None:
-    """Registers, spills and shared memory of each attention instance: the
-    ptxas messages of this build, and the dynamic shared memory the launch
-    asks for."""
+def kernel_resources() -> None:
+    """Registers, spills and shared memory of each attention and GEMM
+    instance (the ptxas messages of this build, and the dynamic shared
+    memory the launch asks for), and the LayerNorm instances' range."""
     import re
 
     from inklayer_tpu_torch import _kernels
 
     if not _kernels.build_log:
-        log("  attention instances: library reused, no ptxas messages")
+        log("  instances: library reused, no ptxas messages")
         return
+    lib = _kernels.lib()
+    ln = []
     for src, text in sorted(_kernels.build_log.items()):
         for name, info in ptxas_entries(text).items():
             m = re.search(r"attention_tile_kernelILi(\d+)ELb([01])E", name)
-            if not m:
+            g = re.search(r"gemm_bias_act_kernelILi(\d+)ELb([01])E", name)
+            if "layernorm_kernel" in name:
+                ln.append(info)
                 continue
-            d, rel = int(m.group(1)), int(m.group(2))
-            dyn = _kernels.lib().ik_attention_smem_bytes(d, rel)
-            log(f"  {src:22s} attention_tile_kernel<{d}, "
-                f"{'true' if rel else 'false'}>: {info.get('regs')} registers"
+            if m:
+                d, rel = int(m.group(1)), int(m.group(2))
+                label = (f"attention_tile_kernel<{d}, "
+                         f"{'true' if rel else 'false'}>")
+                dyn = lib.ik_attention_smem_bytes(d, rel)
+            elif g:
+                bn, gelu = int(g.group(1)), int(g.group(2))
+                label = (f"gemm_bias_act_kernel<{bn}, "
+                         f"{'true' if gelu else 'false'}>")
+                dyn = lib.ik_gemm_smem_bytes(bn)
+            else:
+                continue
+            log(f"  {src:22s} {label}: {info.get('regs')} registers"
                 f" (launch), {info.get('spill_stores')} B spill stores, "
                 f"{info.get('spill_loads')} B spill loads, "
                 f"{info.get('stack')} B stack, {info['smem']} B static + "
                 f"{dyn} B dynamic shared memory")
             if info.get("spill_stores") or info.get("spill_loads"):
                 log("    spills: the times below include them")
+    if ln:
+        regs = [i.get("regs", 0) for i in ln]
+        spills = sum(i.get("spill_stores", 0) + i.get("spill_loads", 0)
+                     for i in ln)
+        log(f"  layernorm.cu {len(ln)} layernorm_kernel instances: "
+            f"{min(regs)}-{max(regs)} registers, {spills} B spilled")
 
 
 def main() -> int:
@@ -1082,7 +1199,7 @@ def main() -> int:
     log(f"  {os.path.relpath(path, REPO)} ready in "
         f"{time.perf_counter() - t0:.1f} s (nvcc "
         f"{'not run: reused' if _kernels.build_seconds is None else f'{_kernels.build_seconds:.1f} s'})")
-    attention_resources()
+    kernel_resources()
 
     log(f"phase 2: kernels vs plain versions [{card}]")
     t0 = time.perf_counter()

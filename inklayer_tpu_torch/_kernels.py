@@ -12,6 +12,16 @@ The build runs at the first kernel launch, never at import: importing the
 package needs no toolchain.  Every C entry point returns the value of
 ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
 
+The launch path is short, because a wrapper's host time is the whole cost
+of a small kernel.  Each launch entry point takes one pointer to a C struct
+of its arguments: the wrapper passes pointers (``tensor.data_ptr()``), the
+stream (:func:`stream`) and the sizes as plain Python numbers, which one
+``struct.pack_into`` writes into a buffer bound to the entry point when the
+library loads, and ctypes converts one address instead of a dozen
+arguments.  The library is loaded as a ``PyDLL``, which keeps the GIL
+through the call, so no other thread repacks the buffer while C reads it.
+:func:`lib` returns the loaded library without a lock.
+
 ``LAUNCHES`` holds one plain integer per kernel.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show which
 kernels its main path went through.  A kernel built in several instances
@@ -22,13 +32,17 @@ under ``"<kernel>/<instance>"``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -46,29 +60,69 @@ _lock = threading.Lock()
 build_seconds = None  # wall time of the build this process ran (None: reused)
 build_log = {}  # source name -> nvcc's stderr (ptxas -v), from a verbose build
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_SIGNATURES = {
+# launch entry point -> the C struct of its arguments, in the notation of
+# the struct module with native alignment: P a pointer (0 for null), i an
+# int, f a float
+_ARGS = {
     # (q, k, v, rel_h, rel_w, out, BH, N, D, kh, kw, scale, stream)
-    "ik_relpos_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # (a, w, bias, out, M, N, K, gelu, stream)
-    "ik_linear_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (x, y, scale, bias, sum_out, out, rows, C, eps, is_bf16, stream)
-    "ik_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "ik_relpos_attention": "PPPPPPiiiiifP",
+    # (a, w, bias, out, M, N, K, gelu, bn, grid, stream)
+    "ik_linear_bias_act": "PPPPiiiiiiP",
+    # (x, y, scale, bias, sum_out, out, rows, C, lanes, vpl, threads, eps,
+    #  is_bf16, stream)
+    "ik_layernorm": "PPPPPPiiiiifiP",
     # (value, level_shapes, level_starts, n_levels, loc, attn, out,
     #  B, S, Lq, heads, n_points, is_bf16, stream)
-    "ik_ms_deform_attn": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P],
+    "ik_ms_deform_attn": "PPPiPPPiiiiiiP",
     # (mask, labels, N, H, W, stream)
-    "ik_connected_components": [_P, _P, _I, _I, _I, _P],
+    "ik_connected_components": "PPiiiP",
     # (mask, out, labels, stats, N, H, W, min_area, min_aspect, stream)
-    "ik_clean_components": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "ik_clean_components": "PPPPiiiifP",
     # (q, k, v, out, BH, N, D, scale, stream)
-    "ik_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # (D, rel) -> dynamic shared memory bytes of that attention instance
-    "ik_attention_smem_bytes": [_I, _I],
+    "ik_flash_attention": "PPPPiiifP",
 }
+# queries off the launch path: name -> (argtypes, restype)
+_QUERIES = {
+    # (D, rel) -> dynamic shared memory bytes of that attention instance
+    "ik_attention_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    # (bn) -> dynamic shared memory bytes of that GEMM instance
+    "ik_gemm_smem_bytes": ([ctypes.c_int], ctypes.c_int),
+    "ik_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+class _Entry:
+    """A launch entry point: packs its arguments into the struct buffer
+    bound to it and passes the buffer's address; returns the CUDA status."""
+
+    __slots__ = ("_pack", "_buf", "_addr", "_fn")
+
+    def __init__(self, fn, fmt: str):
+        layout = struct.Struct("@" + fmt)
+        self._buf = ctypes.create_string_buffer(layout.size)
+        self._addr = ctypes.addressof(self._buf)
+        self._pack = layout.pack_into
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._fn = fn
+
+    def __call__(self, *args) -> int:
+        self._pack(self._buf, 0, *args)
+        return self._fn(self._addr)
+
+
+class Library:
+    """A loaded kernel library: the launch entry points of :data:`_ARGS`
+    and the queries of :data:`_QUERIES` as attributes."""
+
+    def __init__(self, path: str):
+        handle = ctypes.PyDLL(path)
+        for name, fmt in _ARGS.items():
+            setattr(self, name, _Entry(getattr(handle, name), fmt))
+        for name, (argtypes, restype) in _QUERIES.items():
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = argtypes, restype
+            setattr(self, name, fn)
 
 
 def reset_launch_counts() -> None:
@@ -158,25 +212,22 @@ def build(verbose: bool = False, csrc_dir: str = CSRC_DIR,
     return path
 
 
-def load(path: str) -> ctypes.CDLL:
-    """A built kernel library with its entry points' signatures set."""
-    handle = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    handle.ik_error_string.argtypes = [ctypes.c_int]
-    handle.ik_error_string.restype = ctypes.c_char_p
-    return handle
+def load(path: str) -> Library:
+    """A built kernel library with its entry points bound."""
+    return Library(path)
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+def lib() -> Library:
+    """The loaded kernel library (built and loaded on first use, under a
+    lock; afterwards a plain read)."""
     global _lib
-    with _lock:
-        if _lib is None:
-            _lib = load(build())
-    return _lib
+    handle = _lib
+    if handle is None:
+        with _lock:
+            if _lib is None:
+                _lib = load(build())
+            handle = _lib
+    return handle
 
 
 def check(status: int, name: str) -> None:
@@ -185,11 +236,13 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {status} ({msg})")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    import torch
+def stream(device_index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device
+    ``device_index`` (``tensor.get_device()``), as an int."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

@@ -33,16 +33,16 @@
 // stepped from column to column, not a division per logit.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encode function is
-                   // looked up at run time (no -lcuda)
 #include <math_constants.h>
 
 #include <atomic>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 // anonymous: each including source gets its own copy of the kernels
 namespace {
+
+using namespace ik;
 
 using bf16 = __nv_bfloat16;
 
@@ -80,111 +80,8 @@ struct Smem {
 };
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
+// wgmma with A from registers (bf16 in, fp32 accumulators)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of the given parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the kBox x rows box at (column c, row r, head bh) of a tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c, int r, int bh, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r), "r"(bh)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for the 32-byte swizzle (layout type 3);
-// lbo and sbo in bytes.  K-major: rows of 32 bytes, sbo = 8 rows = 256,
-// lbo unused (1).  MN-major: 16 columns x 8 rows of 32 bytes per core
-// block, lbo = the next 16 columns (the next box), sbo = the next 8 rows.
-__device__ __forceinline__ uint64_t desc_b32(uint32_t addr, uint32_t lbo,
-                                             uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (3ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from reading accumulators before the wait above
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma (bf16 in, fp32 accumulators)
-// ---------------------------------------------------------------------------
-
-// d (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory;
-// scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // d += A[64 x 16] B[16 x 48]: A in registers (bf16 pairs), B MN-major in
 // shared memory
@@ -264,11 +161,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
@@ -309,7 +201,7 @@ attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, 2);  // one arrival per consumer
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -319,8 +211,8 @@ attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, L::kQBytes);
       for (int b = 0; b < kBoxes; ++b)
-        tma_load(base + L::q + b * BQ * kBoxRow, &tm_q, b * kBox, q0, bh,
-                 bar_q);
+        tma_load_3d(base + L::q + b * BQ * kBoxRow, &tm_q, b * kBox, q0, bh,
+                    bar_q);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
@@ -328,10 +220,10 @@ attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t k_dst = base + L::k + s * L::kTileBytes;
         const uint32_t v_dst = base + L::v + s * L::kTileBytes;
         for (int b = 0; b < kBoxes; ++b) {
-          tma_load(k_dst + b * BKV * kBoxRow, &tm_k, b * kBox, j * BKV, bh,
-                   bar_full + 8 * s);
-          tma_load(v_dst + b * BKV * kBoxRow, &tm_v, b * kBox, j * BKV, bh,
-                   bar_full + 8 * s);
+          tma_load_3d(k_dst + b * BKV * kBoxRow, &tm_k, b * kBox, j * BKV,
+                      bh, bar_full + 8 * s);
+          tma_load_3d(v_dst + b * BKV * kBoxRow, &tm_v, b * kBox, j * BKV,
+                      bh, bar_full + 8 * s);
         }
       }
     }
@@ -381,10 +273,10 @@ attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int b = 0; b < kBoxes; ++b)
-        wgmma_ss_n128(sc, desc_b32(q_base + b * BQ * kBoxRow, 16, 256),
+        wgmma_ss<128>(sc, desc_b32(q_base + b * BQ * kBoxRow, 16, 256),
                       desc_b32(k_base + b * BKV * kBoxRow, 16, 256), b > 0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       // logits in log2 units, in place
@@ -474,7 +366,7 @@ attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
                      desc_b32(v_base + kk * 16 * kBoxRow, BKV * kBoxRow, 256));
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
       if (t == 0) mbar_arrive(bar_empty + 8 * s);  // stage read: release it
     }
@@ -507,27 +399,6 @@ attention_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 // 3-D map over a (BH, N, D) bf16 tensor with kBox x rows boxes and the
 // 32-byte swizzle; reads outside (D, N, BH) fill with zeros

@@ -203,8 +203,16 @@ cudaError_t label_components(const uint8_t* mask, int* label, int N, int H,
 
 }  // namespace
 
-IK_EXPORT int ik_connected_components(const void* mask, void* labels, int N,
-                                      int H, int W, void* stream) {
+// the arguments, packed by _kernels.py (struct format "PPiiiP")
+struct LabelArgs {
+  const void* mask;
+  void* labels;
+  int N, H, W;
+  void* stream;
+};
+
+IK_EXPORT int ik_connected_components(const LabelArgs* args) {
+  const auto [mask, labels, N, H, W, stream] = *args;
   if (N < 1 || H < 1 || W < 1 || (long long)H * W > INT_MAX / 2 ||
       N > 65535)
     return (int)cudaErrorInvalidValue;
@@ -213,10 +221,18 @@ IK_EXPORT int ik_connected_components(const void* mask, void* labels, int N,
                                static_cast<cudaStream_t>(stream));
 }
 
-IK_EXPORT int ik_clean_components(const void* mask, void* out, void* labels,
-                                  void* stats, int N, int H, int W,
-                                  int min_area, float min_aspect,
-                                  void* stream) {
+// the arguments, packed by _kernels.py (struct format "PPPPiiiifP")
+struct CleanArgs {
+  const void* mask;
+  void *out, *labels, *stats;
+  int N, H, W, min_area;
+  float min_aspect;
+  void* stream;
+};
+
+IK_EXPORT int ik_clean_components(const CleanArgs* args) {
+  const auto [mask, out, labels, stats, N, H, W, min_area, min_aspect,
+              stream] = *args;
   if (N < 1 || H < 1 || W < 1 || (long long)H * W > INT_MAX / 2 ||
       N > 65535)
     return (int)cudaErrorInvalidValue;

@@ -25,9 +25,17 @@
 // warpgroups of a block overlap one's softmax with the other's products.
 #include "attention_tile.cuh"
 
-IK_EXPORT int ik_flash_attention(const void* q, const void* k, const void* v,
-                                 void* out, int BH, int N, int D, float scale,
-                                 void* stream) {
+// the arguments, packed by _kernels.py (struct format "PPPPiiifP")
+struct FlashArgs {
+  const void *q, *k, *v;
+  void* out;
+  int BH, N, D;
+  float scale;
+  void* stream;
+};
+
+IK_EXPORT int ik_flash_attention(const FlashArgs* args) {
+  const auto [q, k, v, out, BH, N, D, scale, stream] = *args;
   if (BH < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -97,11 +97,21 @@ cudaError_t launch(const void* value, const Levels& lv, int n_levels,
 
 // level_shapes: host int[2 * n_levels] (h, w pairs); level_starts: host
 // int[n_levels] token offsets of each level in the flattened value.
-IK_EXPORT int ik_ms_deform_attn(const void* value, const int* level_shapes,
-                                const int* level_starts, int n_levels,
-                                const void* loc, const void* attn, void* out,
-                                int B, int S, int Lq, int heads, int n_points,
-                                int is_bf16, void* stream) {
+// the arguments, packed by _kernels.py (struct format "PPPiPPPiiiiiiP");
+// level_shapes and level_starts are host arrays
+struct MsdaArgs {
+  const void* value;
+  const int *level_shapes, *level_starts;
+  int n_levels;
+  const void *loc, *attn;
+  void* out;
+  int B, S, Lq, heads, n_points, is_bf16;
+  void* stream;
+};
+
+IK_EXPORT int ik_ms_deform_attn(const MsdaArgs* args) {
+  const auto [value, level_shapes, level_starts, n_levels, loc, attn, out, B,
+              S, Lq, heads, n_points, is_bf16, stream] = *args;
   if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
   Levels lv{};
   for (int i = 0; i < n_levels; ++i) {

@@ -23,10 +23,18 @@
 // never exists.
 #include "attention_tile.cuh"
 
-IK_EXPORT int ik_relpos_attention(const void* q, const void* k, const void* v,
-                                  const void* rel_h, const void* rel_w,
-                                  void* out, int BH, int N, int D, int kh,
-                                  int kw, float scale, void* stream) {
+// the arguments, packed by _kernels.py (struct format "PPPPPPiiiiifP")
+struct RelposArgs {
+  const void *q, *k, *v, *rel_h, *rel_w;
+  void* out;
+  int BH, N, D, kh, kw;
+  float scale;
+  void* stream;
+};
+
+IK_EXPORT int ik_relpos_attention(const RelposArgs* args) {
+  const auto [q, k, v, rel_h, rel_w, out, BH, N, D, kh, kw, scale, stream] =
+      *args;
   if (kh < 1 || kw < 1 || kh > kMaxRel || kw > kMaxRel || kh * kw != N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

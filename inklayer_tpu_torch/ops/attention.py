@@ -87,8 +87,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "bf16 tensors")
     out = torch.empty_like(q)
     status = _kernels.lib().ik_flash_attention(
-        _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
-        bh, n, d, float(scale), _kernels.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, n, d,
+        float(scale), _kernels.stream(q.get_device()))
     _kernels.check(status, "flash_attention")
     _kernels.count_launch("flash_attention", f"d{d}")
     return out
@@ -150,9 +150,9 @@ def relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "aligned bf16 tensors")
     out = torch.empty_like(q)
     status = _kernels.lib().ik_relpos_attention(
-        _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v),
-        _kernels.ptr(rel_h), _kernels.ptr(rel_w), _kernels.ptr(out),
-        bh, n, d, kh, kw, float(scale), _kernels.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(),
+        rel_w.data_ptr(), out.data_ptr(), bh, n, d, kh, kw, float(scale),
+        _kernels.stream(q.get_device()))
     _kernels.check(status, "relpos_attention")
     _kernels.count_launch("relpos_attention")
     return out

@@ -83,8 +83,8 @@ def connected_components(masks: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return labels
     status = _kernels.lib().ik_connected_components(
-        _kernels.ptr(masks), _kernels.ptr(labels), n, h, w,
-        _kernels.stream_handle(masks.device))
+        masks.data_ptr(), labels.data_ptr(), n, h, w,
+        _kernels.stream(masks.get_device()))
     _kernels.check(status, "connected_components")
     _kernels.count_launch("connected_components")
     return labels
@@ -156,9 +156,9 @@ def clean_components(masks: torch.Tensor, min_area: int, min_aspect: float
     labels = torch.empty((n, h, w), dtype=torch.int32, device=dev)
     stats = torch.empty((5, n * h * w), dtype=torch.int32, device=dev)
     status = _kernels.lib().ik_clean_components(
-        _kernels.ptr(masks), _kernels.ptr(out), _kernels.ptr(labels),
-        _kernels.ptr(stats), n, h, w, int(min_area), float(min_aspect),
-        _kernels.stream_handle(dev))
+        masks.data_ptr(), out.data_ptr(), labels.data_ptr(), stats.data_ptr(),
+        n, h, w, int(min_area), float(min_aspect),
+        _kernels.stream(masks.get_device()))
     _kernels.check(status, "clean_components")
     _kernels.count_launch("clean_components")
     return out, capped

@@ -98,11 +98,11 @@ def ms_deform_attn(value: torch.Tensor,
     out = torch.empty((b, lq, heads * d), dtype=value.dtype,
                       device=value.device)
     status = _kernels.lib().ik_ms_deform_attn(
-        _kernels.ptr(value), shapes.ctypes.data, starts.ctypes.data,
-        n_levels, _kernels.ptr(sampling_locations),
-        _kernels.ptr(attention_weights), _kernels.ptr(out), b, s, lq, heads,
-        n_points, int(value.dtype == torch.bfloat16),
-        _kernels.stream_handle(value.device))
+        value.data_ptr(), shapes.ctypes.data, starts.ctypes.data, n_levels,
+        sampling_locations.data_ptr(), attention_weights.data_ptr(),
+        out.data_ptr(), b, s, lq, heads, n_points,
+        int(value.dtype == torch.bfloat16),
+        _kernels.stream(value.get_device()))
     _kernels.check(status, "ms_deform_attn")
     _kernels.count_launch("ms_deform_attn")
     return out

@@ -21,6 +21,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     All tensors must lie on one device type; anything but CUDA or CPU is
     refused, so no tensor silently takes the plain path on an accelerator
     the kernels were not written for."""
+    for t in tensors:  # the launch path: no device objects
+        if not t.is_cuda:
+            break
+    else:
+        return True
     types = {t.device.type for t in tensors}
     if len(types) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(types)}")

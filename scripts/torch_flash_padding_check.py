@@ -116,9 +116,8 @@ def main() -> int:
             for name, lib in libs.items():
                 out = torch.empty_like(q)
                 status = lib.ik_flash_attention(
-                    _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v),
-                    _kernels.ptr(out), bh, n, 40, 40 ** -0.5,
-                    _kernels.stream_handle(q.device))
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    bh, n, 40, 40 ** -0.5, _kernels.stream(q.get_device()))
                 _kernels.check(status, name)
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs()

@@ -7,7 +7,8 @@ package).  Run on a card with
 
 Inputs are seeded bf16; the plain version runs in fp32 on the same card
 with TF32 off.  Tolerance atol = rtol = 2e-2 (bf16 outputs; the attention
-rounds its probabilities and the MLP its hidden activation to bf16).  The
+rounds its probabilities and the MLP its hidden activation to bf16), and
+for the attention and GEMM kernels a relative L2 error <= 5e-3.  The
 connected-components kernels are exact: labels and cleaned masks equal
 their plain versions bit for bit.
 """
@@ -66,26 +67,67 @@ def test_relpos_attention_kernel(gen, bh, kh, kw, d):
     assert _rel_l2(got, want) <= 5e-3
 
 
-@pytest.mark.parametrize("t,c,h", [(512, 128, 512), (1024, 1280, 5120)])
+# fc1 at K 128 (fewer K slabs than ring stages), 1024 and 4096 tokens of
+# SAM ViT-H (fc1 128 x 256 tiles, fc2 128 x 160)
+@pytest.mark.parametrize("t,c,h", [(512, 128, 512), (1024, 1280, 5120),
+                                   (4096, 1280, 5120)])
 def test_mlp_gelu_kernel(gen, t, c, h):
     args = [_randn(gen, t, c), _randn(gen, h, c, std=c ** -0.5),
             _randn(gen, h, std=0.1), _randn(gen, c, h, std=h ** -0.5),
             _randn(gen, c, std=0.1)]
+    before = _kernels.LAUNCHES["mlp_gelu"]
     got = mlp.mlp_gelu(*args)
-    torch.testing.assert_close(got.float(), mlp.mlp_gelu_plain(*_f32(args)),
-                               **TOL)
+    assert _kernels.LAUNCHES["mlp_gelu"] == before + 1
+    want = mlp.mlp_gelu_plain(*_f32(args))
+    torch.testing.assert_close(got.float(), want, **TOL)
+    assert _rel_l2(got, want) <= 5e-3
 
 
-@pytest.mark.parametrize("rows,c", [(512, 96), (777, 1280), (1000, 256)])
+# every tile width at every epilogue, a grid smaller than the tile count
+# (several tiles per block), and K % 64 == 32 (TMA zero-fills the last slab)
+@pytest.mark.parametrize("m,n,k,bn,grid", [
+    (128, 128, 64, 128, 1), (256, 256, 160, 128, 3), (256, 512, 96, 256, 1),
+    (512, 640, 256, 160, 5), (384, 1280, 5120, 160, 7),
+    (4096, 1280, 5120, 256, 132)])
+@pytest.mark.parametrize("gelu", [True, False])
+def test_gemm_kernel_tile_widths(gen, m, n, k, bn, grid, gelu):
+    a = _randn(gen, m, k)
+    w = _randn(gen, n, k, std=k ** -0.5)
+    b = _randn(gen, n, std=0.1)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+    status = _kernels.lib().ik_linear_bias_act(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        int(gelu), bn, grid, _kernels.stream(0))
+    _kernels.check(status, "mlp_gelu")
+    want = torch.nn.functional.linear(*_f32([a, w, b]))
+    if gelu:
+        want = torch.nn.functional.gelu(want)
+    torch.testing.assert_close(out.float(), want, **TOL)
+    assert _rel_l2(out, want) <= 5e-3
+
+
+# chip_smoke's phase-2 shapes, a last row group left partly empty (513 rows
+# of 4 lanes at C 96: 8 rows per warp), C 4096, and C 272 (no even split:
+# the whole warp with guarded vectors)
+@pytest.mark.parametrize("rows,c", [
+    (4096, 1280), (40000, 96), (1370, 768), (18432, 320), (4608, 640),
+    (1152, 1280), (513, 96), (512, 96), (777, 1280), (1000, 256),
+    (600, 4096), (512, 272)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_layernorm_kernel(gen, rows, c, dtype):
     x, y = (_randn(gen, rows, c).to(dtype) for _ in range(2))
     sc = (1 + _randn(gen, c, std=0.1)).to(dtype)
     bi = _randn(gen, c, std=0.1).to(dtype)
+    if dtype == torch.float32 and c > 2048:  # 16 vectors of 4 on 32 lanes
+        with pytest.raises(ValueError):
+            norm.layernorm_2d(x, sc, bi)
+        return
+    before = _kernels.LAUNCHES["layernorm"]
     torch.testing.assert_close(norm.layernorm_2d(x, sc, bi).float(),
                                norm.layernorm_2d_plain(*_f32([x, sc, bi])),
                                **TOL)
     s, o = norm.layernorm_residual_2d(x, y, sc, bi)
+    assert _kernels.LAUNCHES["layernorm"] == before + 2
     s_w, o_w = norm.layernorm_residual_2d_plain(*_f32([x, y, sc, bi]))
     torch.testing.assert_close(s.float(), s_w, **TOL)
     torch.testing.assert_close(o.float(), o_w, **TOL)
@@ -179,3 +221,30 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
             attention.flash_attention(q, q, q)
     with pytest.raises(ValueError):  # components take bool masks
         components.connected_components(_randn(gen, 2, 8, 8))
+    a, w, b = _randn(gen, 512, 48), _randn(gen, 512, 48), _randn(gen, 512)
+    with pytest.raises(ValueError):  # K % 32 != 0
+        mlp.mlp_gelu(a, w, b, _randn(gen, 128, 512), _randn(gen, 128))
+    a, w = _randn(gen, 512, 128), _randn(gen, 512, 128)
+    with pytest.raises(ValueError):  # bias is not (H,)
+        mlp.mlp_gelu(a, w, _randn(gen, 256), _randn(gen, 128, 512),
+                     _randn(gen, 128))
+    with pytest.raises(ValueError):  # fp32
+        mlp.mlp_gelu(a.float(), w.float(), _randn(gen, 512).float(),
+                     _randn(gen, 128, 512).float(), _randn(gen, 128).float())
+    with pytest.raises(ValueError):  # not contiguous
+        mlp.mlp_gelu(_randn(gen, 128, 512).t(), w, _randn(gen, 512),
+                     _randn(gen, 128, 512), _randn(gen, 128))
+    x, sc = _randn(gen, 512, 100), _randn(gen, 100)
+    with pytest.raises(ValueError):  # C % 8 != 0 (bf16)
+        norm.layernorm_2d(x, sc, sc)
+    x, sc = _randn(gen, 512, 128), _randn(gen, 128)
+    with pytest.raises(TypeError):  # scale in another dtype
+        norm.layernorm_2d(x, sc.float(), sc)
+    with pytest.raises(TypeError):  # float16
+        norm.layernorm_2d(x.half(), sc.half(), sc.half())
+    with pytest.raises(ValueError):  # not contiguous
+        norm.layernorm_2d(_randn(gen, 512, 256)[:, :128], sc, sc)
+    with pytest.raises(ValueError):  # residual of another shape
+        norm.layernorm_residual_2d(x, _randn(gen, 256, 128), sc, sc)
+    with pytest.raises(ValueError):  # scale not (C,)
+        norm.layernorm_2d(x, _randn(gen, 64), sc)

@@ -3,7 +3,9 @@
 package's Pallas mlp_gelu in interpret mode (bf16) and its XLA MLP (fp32).
 
 Tolerances: bf16 kernel path rtol 2e-2; fp32 XLA path atol = rtol = 1e-4;
-the TPU kernel's polynomial erf against torch's exact erf GELU 1e-5.
+the TPU kernel's polynomial erf against torch's exact erf GELU 1e-5.  Also
+the CUDA GEMM's launch configuration (``gemm_config``), which is plain
+Python.
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 from inklayer_tpu.nn.layers import MLP as JaxMLP
 from inklayer_tpu.ops.mlp import _gelu, mlp_gelu
 from inklayer_tpu_torch.nn.layers import MLP
+from inklayer_tpu_torch.ops.mlp import GEMM_BLOCK_N, gemm_config
 from inklayer_tpu_torch.ops.mlp import mlp_gelu as t_mlp_gelu
 
 
@@ -86,3 +89,41 @@ def test_erf_polynomial_matches_exact_gelu():
     poly = np.asarray(_gelu(jnp.asarray(h), "erf"))
     exact = F.gelu(torch.from_numpy(h)).numpy()
     np.testing.assert_allclose(poly, exact, atol=1e-5, rtol=1e-5)
+
+
+# The GEMM's launch configuration (a pure function of the shape and the
+# card's SM count): block tile N, output tiles, grid.  fc1 and fc2 at SAM
+# ViT-H (T 4096, C 1280, H 5120), the card test's K-128 product, and fc1 at
+# 1024 tokens; 132 SMs (H100 SXM).
+@pytest.mark.parametrize("shape,want", [
+    ((4096, 5120, 1280), (256, 640, 132)),   # 4.85 waves; 160 and 128 tie
+    ((4096, 1280, 5120), (160, 256, 132)),   # 1.94 waves (256: 1.21)
+    ((512, 512, 128), (128, 16, 16)),        # one partial wave
+    ((1024, 5120, 1280), (160, 256, 132)),   # 1.94 waves (256: 1.21)
+])
+def test_gemm_config_tile_and_grid(shape, want):
+    assert gemm_config(*shape) == want
+
+
+@pytest.mark.parametrize("shape", [(4096, 5120, 1280), (4096, 1280, 5120),
+                                   (512, 512, 128), (1024, 5120, 1280),
+                                   (1024, 1280, 5120), (512, 384, 96)])
+def test_gemm_config_takes_the_least_work_per_sm(shape):
+    """The chosen width divides N and has the least ceil(tiles / SMs) *
+    width of the instances; a tie goes to the wider tile."""
+    m, n, k = shape
+    bn, tiles, grid = gemm_config(m, n, k)
+    assert bn in GEMM_BLOCK_N and n % bn == 0
+    assert tiles == (m // 128) * (n // bn) and grid == min(tiles, 132)
+    work = {w: -(-(m // 128) * (n // w) // 132) * w for w in GEMM_BLOCK_N
+            if n % w == 0}
+    assert work[bn] == min(work.values())
+    assert bn == max(w for w, v in work.items() if v == work[bn])
+
+
+@pytest.mark.parametrize("shape", [(100, 512, 128), (512, 100, 128),
+                                   (512, 512, 48), (0, 128, 32),
+                                   (128, 128, 0)])
+def test_gemm_config_refuses_shapes_outside_the_gate(shape):
+    with pytest.raises(ValueError):
+        gemm_config(*shape)
