@@ -13,7 +13,9 @@ Phases, each of which raises on failure (exit code != 0):
              of the default run and of the inpainting path, inputs seeded
              random bf16 with the plain version in fp32 on the card (TF32
              off), tolerances stated below; the connected-components
-             kernels on a seeded bool mask stack, exactly; median times
+             kernels exactly, on a seeded bool mask stack, on its first
+             mask alone (the refiner's call) and on a stack built to
+             break the tile decomposition; median times
              from CUDA events of the kernel, its plain version and, where
              one PyTorch call computes the same function, that call (timed
              only: nothing in the port calls it); for the kernel and the
@@ -385,6 +387,21 @@ def mask_stack(gen, n: int = 64, h: int = 750, w: int = 750):
     return masks
 
 
+def adversarial_stack(n: int = 64, h: int = 750, w: int = 750):
+    """(n, h, w) bool masks on the card built to break the tile-based
+    labelling (``tests/torch_masks.py``: a serpentine, a spiral, a comb, a
+    full mask, a checkerboard, pairs across tile corners, blobs), each kind
+    shifted to meet the 32 x 32 tiles at other phases."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_masks import MASK_KINDS, adversarial_mask
+
+    kinds = [adversarial_mask(k, h, w) for k in MASK_KINDS]
+    return torch.stack([torch.roll(kinds[i % len(kinds)], (i, 3 * i), (0, 1))
+                        for i in range(n)]).cuda()
+
+
 def phase_kernels(results: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -540,20 +557,33 @@ def phase_kernels(results: dict) -> None:
             rel_l2=5e-3)
     torch.cuda.empty_cache()
 
-    # connected components on the cleaning stage's shape: 64 masks of 750^2.
-    # Bound: bytes (the bool masks in; int32 labels or bool masks out); the
-    # union-find does a few integer operations per pixel.
+    # connected components on the cleaning stage's shape, 64 masks of 750^2,
+    # on the refiner's (one mask of 750^2: large_component_mask), and on 64
+    # masks built to break the tile decomposition.  Bound: bytes (the bool
+    # masks in; int32 labels or bool masks out); the union-find does a few
+    # integer operations per pixel.
     masks = mask_stack(gen)
-    npx = masks.numel()
-    _exact_case(results, "connected_components", "(64,750,750) labels",
-                components.connected_components,
-                components.connected_components_plain, [masks],
-                bound(0.0, npx * (1 + 4), PEAK_FP32))
-    _exact_case(results, "clean_components",
-                "(64,750,750) area>500|aspect>1.1",
-                lambda m: components.clean_components(m, 500, 1.1),
-                lambda m: components.clean_components_plain(m, 500, 1.1),
-                [masks], bound(0.0, npx * 2, PEAK_FP32))
+    adversarial = adversarial_stack()
+    for case, m in (("(64,750,750) labels", masks),
+                    ("(1,750,750) labels (refiner)", masks[:1].clone()),
+                    ("(64,750,750) adversarial labels", adversarial)):
+        _exact_case(results, "connected_components", case,
+                    components.connected_components,
+                    components.connected_components_plain, [m],
+                    bound(0.0, m.numel() * (1 + 4), PEAK_FP32))
+    # the cleaning on the same stacks, and on 4 masks of 27 x 37 (H * W % 4
+    # == 3), full ones beside lone pixels at (0, 0): the keep pass's groups
+    # of four pixels straddle two masks
+    from torch_masks import straddle_stack
+
+    for case, m in (("(64,750,750) area>500|aspect>1.1", masks),
+                    ("(64,750,750) adversarial", adversarial),
+                    ("(4,27,37) groups straddle masks",
+                     straddle_stack(4, 27, 37).cuda())):
+        _exact_case(results, "clean_components", case,
+                    lambda m: components.clean_components(m, 500, 1.1),
+                    lambda m: components.clean_components_plain(m, 500, 1.1),
+                    [m], bound(0.0, m.numel() * 2, PEAK_FP32))
     kept, _ = components.clean_components(masks, 500, 1.1)
     if not 0 < int(kept.sum()) < int(masks.sum()):
         raise AssertionError("clean_components: the stack should lose some "
@@ -685,14 +715,17 @@ def phase_slice(card: str) -> dict:
         raise AssertionError(f"no_intermediate left {left}")
     log(f"  no_intermediate run left {left}")
 
-    # one more run, traced: where the device time goes (not timed above)
-    prof = device_profile(lambda: pipe.run(sketch, out_base))
+    # one more run, traced: where the device time goes (not timed above),
+    # the ten kernels with the most device time, then the components and
+    # deformable-attention kernels wherever they rank
+    prof = device_profile(lambda: pipe.run(sketch, out_base), top=10 ** 6)
     log(f"  traced run [{card}]: wall {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f}; "
         f"stages " + ", ".join(f"{k} {v * 1e3:.1f} ms"
                                for k, v in pipe.stage_times.items()))
-    for name, ms, calls in prof["kernels"]:
-        log(f"    {ms:8.3f} ms  {calls:5d} x  {name[:90]}")
+    for i, (name, ms, calls) in enumerate(prof["kernels"]):
+        if i < 10 or "::cc_" in name or "ms_deform_attn_kernel" in name:
+            log(f"    {ms:8.3f} ms  {calls:5d} x  {name[:90]}")
     refine_loops(card)
     return {"p50_ms": p50, "peak_gib": peak, "launches": timed[-1]["counts"]}
 

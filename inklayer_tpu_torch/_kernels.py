@@ -71,12 +71,12 @@ _ARGS = {
     # (x, y, scale, bias, sum_out, out, rows, C, lanes, vpl, threads, eps,
     #  is_bf16, stream)
     "ik_layernorm": "PPPPPPiiiiifiP",
-    # (value, level_shapes, level_starts, n_levels, loc, attn, out,
-    #  B, S, Lq, heads, n_points, is_bf16, stream)
-    "ik_ms_deform_attn": "PPPiPPPiiiiiiP",
+    # (value, loc, attn, out, B, S, Lq, heads, n_levels, n_points, is_bf16,
+    #  8 level heights, 8 widths, 8 token offsets, stream)
+    "ik_ms_deform_attn": "PPPP7i24iP",
     # (mask, labels, N, H, W, stream)
     "ik_connected_components": "PPiiiP",
-    # (mask, out, labels, stats, N, H, W, min_area, min_aspect, stream)
+    # (mask, out, labels, cells, N, H, W, min_area, min_aspect, stream)
     "ik_clean_components": "PPPPiiiifP",
     # (q, k, v, out, BH, N, D, scale, stream)
     "ik_flash_attention": "PPPPiiifP",

@@ -6,13 +6,14 @@ Labels follow the JAX package: (N, H, W) int32, -1 at background, each
 its pixels.  On a CUDA tensor :func:`connected_components` and
 :func:`clean_components` launch the union-find kernels of
 ``csrc/components.cu`` (ports of the Pallas ``_connected_components_pallas``
-and ``_clean_components_pallas``); on a CPU tensor they run the plain
-versions below.  Both reach the exact fixpoint: the TPU kernel stops after
-16 propagation steps and examines at most 256 components, the XLA path
-after 64 steps and 128 components, so they agree with the port exactly on
-every mask the JAX package reports as uncapped.  The port's cap flags are
-therefore False by construction; they are returned so the runner keeps the
-JAX package's API.
+and ``_clean_components_pallas``: tile-local union-find in shared memory,
+then the tile borders in device memory); on a CPU tensor they run the
+plain versions below.  Both reach the exact fixpoint: the TPU kernel stops
+after 16 propagation steps and examines at most 256 components, the XLA
+path after 64 steps and 128 components, so they agree with the port
+exactly on every mask the JAX package reports as uncapped.  The port's
+cap flags are therefore False by construction; they are returned so the
+runner keeps the JAX package's API.
 """
 
 from __future__ import annotations
@@ -153,10 +154,13 @@ def clean_components(masks: torch.Tensor, min_area: int, min_aspect: float
     capped = torch.zeros(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out, capped
+    # scratch: the labels, and the per-root statistics (area, ymax, xmin,
+    # xmax) in one cell per 2 x 2 pixels, which holds at most one root
     labels = torch.empty((n, h, w), dtype=torch.int32, device=dev)
-    stats = torch.empty((5, n * h * w), dtype=torch.int32, device=dev)
+    cells = torch.empty((n, (h + 1) // 2, (w + 1) // 2, 4), dtype=torch.int32,
+                        device=dev)
     status = _kernels.lib().ik_clean_components(
-        masks.data_ptr(), out.data_ptr(), labels.data_ptr(), stats.data_ptr(),
+        masks.data_ptr(), out.data_ptr(), labels.data_ptr(), cells.data_ptr(),
         n, h, w, int(min_area), float(min_aspect),
         _kernels.stream(masks.get_device()))
     _kernels.check(status, "clean_components")

@@ -130,3 +130,23 @@ def test_bf16_values_accumulate_in_fp32(rng):
     want = ms_deform_attn_ref(vb.float().numpy(), shapes, locs, wts)
     np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2,
                                rtol=1e-2)
+
+
+def test_kernel_level_table():
+    """The level table the kernel takes by value: S, then heights, widths
+    and token offsets padded to 8 levels; built once per shape set; more
+    than 8 levels refused."""
+    from inklayer_tpu_torch.ops.deformable import level_table
+
+    shapes = ((100, 100), (50, 50), (25, 25), (13, 13))
+    table = level_table(shapes)
+    assert table == (13294, 100, 50, 25, 13, 0, 0, 0, 0,
+                     100, 50, 25, 13, 0, 0, 0, 0,
+                     0, 10000, 12500, 13125, 0, 0, 0, 0)
+    assert level_table(tuple(shapes)) is table
+    assert level_table(((3, 5),)) == (15, 3, *[0] * 7, 5, *[0] * 7,
+                                      *[0] * 8)
+    with pytest.raises(ValueError):
+        level_table(((1, 1),) * 9)
+    with pytest.raises(ValueError):
+        level_table(())

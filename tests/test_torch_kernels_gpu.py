@@ -19,6 +19,7 @@ import torch
 from inklayer_tpu_torch import _kernels
 from inklayer_tpu_torch.ops import (attention, components, deformable, mlp,
                                     norm)
+from torch_masks import MASK_KINDS, adversarial_mask, straddle_stack
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -248,3 +249,178 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         norm.layernorm_residual_2d(x, _randn(gen, 256, 128), sc, sc)
     with pytest.raises(ValueError):  # scale not (C,)
         norm.layernorm_2d(x, _randn(gen, 64), sc)
+    shapes, value, loc, att = _msda_inputs(gen, 1, 16, 2, 4, torch.bfloat16,
+                                           "uniform")
+    buf = torch.empty(value.numel() + 1, dtype=value.dtype, device="cuda")
+    with pytest.raises(ValueError):  # contiguous, value not on 16 bytes
+        deformable.ms_deform_attn(buf[1:].view(value.shape), shapes, loc, att)
+    buf = torch.empty(loc.numel() + 1, device="cuda")
+    with pytest.raises(ValueError):  # contiguous, locations not on 8 bytes
+        deformable.ms_deform_attn(value, shapes, buf[1:].view(loc.shape), att)
+
+
+# ---------------------------------------------------------------------------
+# connected components: masks aimed at the tile decomposition (tiles of
+# 32 x 32 pixels; corners of every 16-pixel grid cover 16 x 64 tiles too)
+# ---------------------------------------------------------------------------
+
+# H and W that are and are not multiples of the tile, one row, one column,
+# one pixel
+SHAPES = ((1, 750, 750), (2, 33, 33), (1, 1, 750), (1, 750, 1), (1, 1, 1),
+          (3, 100, 96), (2, 64, 64))
+
+
+def _stack(kind, n, h, w):
+    m = adversarial_mask(kind, h, w)
+    # mask i: the pattern shifted by i pixels, so each meets the tile
+    # borders at another phase
+    return torch.stack([torch.roll(m, (i, 2 * i), (0, 1))
+                        for i in range(n)]).cuda()
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("n,h,w", SHAPES)
+def test_connected_components_adversarial(gen, kind, n, h, w):
+    masks = _stack(kind, n, h, w)
+    got = components.connected_components(masks)
+    assert torch.equal(got, components.connected_components_plain(masks))
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("n,h,w", SHAPES)
+def test_clean_components_adversarial(gen, kind, n, h, w):
+    masks = _stack(kind, n, h, w)
+    got, capped = components.clean_components(masks, 50, 1.1)
+    want, _ = components.clean_components_plain(masks, 50, 1.1)
+    assert torch.equal(got, want) and not capped.any()
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 1, 3), (4, 3, 3), (4, 1, 6),
+                                   (4, 7, 11), (3, 27, 37), (4, 33, 33),
+                                   (2, 750, 751)])
+def test_clean_components_groups_straddle_masks(gen, n, h, w):
+    """The keep pass takes four pixels of the stack at a time; where H * W
+    % 4 != 0 they straddle two masks, whose roots 0 are two components: a
+    full mask (kept) and a lone pixel at (0, 0) (dropped)."""
+    masks = straddle_stack(n, h, w).cuda()
+    got, capped = components.clean_components(masks, 2, 2.0)
+    want, _ = components.clean_components_plain(masks, 2, 2.0)
+    assert torch.equal(got, want) and not capped.any()
+    assert got[0::2].all() and not got[1::2].any()
+
+
+def test_components_take_masks_at_an_odd_byte_offset(gen):
+    """A contiguous view that starts at an odd address: the kernels load a
+    row's two bytes at once only where the pair is aligned."""
+    masks = _blob_stack(gen, 3, 64, 80)
+    flat = torch.zeros(masks.numel() + 1, dtype=torch.bool, device="cuda")
+    flat[1:] = masks.reshape(-1)
+    odd = flat[1:].view(masks.shape)
+    assert odd.is_contiguous() and odd.data_ptr() % 2 == 1
+    assert torch.equal(components.connected_components(odd),
+                       components.connected_components_plain(masks))
+    got, _ = components.clean_components(odd, 50, 1.1)
+    want, _ = components.clean_components_plain(masks, 50, 1.1)
+    assert torch.equal(got, want)
+
+
+def test_components_stack_of_64(gen):
+    """N = 64 at 750^2: every kind, shifted, beside random blob stacks."""
+    rest = 64 - 5 * len(MASK_KINDS)
+    masks = torch.cat([_stack(k, 5, 750, 750) for k in MASK_KINDS]
+                      + [_blob_stack(gen, rest, 750, 750)])
+    assert masks.shape == (64, 750, 750)
+    got = components.connected_components(masks)
+    assert torch.equal(got, components.connected_components_plain(masks))
+    kept, _ = components.clean_components(masks, 500, 1.1)
+    want, _ = components.clean_components_plain(masks, 500, 1.1)
+    assert torch.equal(kept, want)
+
+
+def test_clean_components_peak_memory(gen):
+    """Scratch beyond the labels and the output: one int32 plane's worth
+    (the cell table), not five."""
+    masks = _blob_stack(gen, 16, 750, 750)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    components.clean_components(masks, 50, 1.1)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - base
+    npx = masks.numel()
+    assert above <= npx * (4 + 1) + 16 * 376 * 376 * 16 + 2 ** 20
+
+
+# ---------------------------------------------------------------------------
+# multi-scale deformable attention: corners, NaN, edges, levels, points
+# ---------------------------------------------------------------------------
+
+LEVELS = ((20, 24), (10, 12), (5, 6), (3, 3), (2, 2), (1, 1), (1, 2), (2, 1))
+
+
+def _msda_inputs(gen, b, lq, n_levels, n_points, dtype, kind):
+    shapes = LEVELS[:n_levels]
+    s = sum(h * w for h, w in shapes)
+    value = (torch.randn(b, s, 8, 32, generator=gen, device="cuda")
+             .to(dtype))
+    size = (b, lq, 8, n_levels, n_points)
+    if kind == "outside":  # every corner outside its level
+        u = torch.rand(*size, 2, generator=gen, device="cuda")
+        loc = torch.where(u < 0.5, -0.6 + u * 0.4, 1.2 + u * 0.4)
+    elif kind == "edges":  # exactly on pixel centres and level edges
+        loc = torch.empty(*size, 2, device="cuda")
+        for lvl, (h, w) in enumerate(shapes):
+            for c, n in ((0, w), (1, h)):
+                choices = torch.tensor(
+                    [0.0, 1.0, 0.5 / n, 1 - 0.5 / n, (n + 0.5) / n,
+                     -0.5 / n, 1.0 / n, (n - 1.0) / n], device="cuda")
+                idx = torch.randint(0, len(choices), size[:3] + (n_points,),
+                                    generator=gen, device="cuda")
+                loc[:, :, :, lvl, :, c] = choices[idx]
+    else:
+        loc = torch.rand(*size, 2, generator=gen, device="cuda") * 1.4 - 0.2
+    att = torch.softmax(torch.randn(b, lq, 8, n_levels * n_points,
+                                    generator=gen, device="cuda"), -1)
+    return shapes, value, loc.contiguous(), att.reshape(size).contiguous()
+
+
+@pytest.mark.parametrize("n_levels,n_points,lq,b,dtype,kind", [
+    (4, 4, 900, 1, torch.bfloat16, "uniform"),
+    (1, 1, 37, 2, torch.bfloat16, "uniform"),
+    (2, 8, 37, 2, torch.bfloat16, "uniform"),
+    (8, 4, 101, 1, torch.bfloat16, "uniform"),
+    (8, 8, 13, 2, torch.float32, "uniform"),
+    (3, 1, 37, 2, torch.float32, "uniform"),
+    (4, 4, 1, 1, torch.float32, "uniform"),
+    (5, 4, 64, 2, torch.bfloat16, "outside"),
+    (4, 4, 37, 2, torch.bfloat16, "nan"),
+    (7, 1, 200, 1, torch.float32, "nan"),
+    (4, 8, 37, 2, torch.float32, "edges"),
+    (6, 4, 37, 2, torch.bfloat16, "edges")])
+def test_ms_deform_attn_cases(gen, n_levels, n_points, lq, b, dtype, kind):
+    """Lq not a multiple of a block's 8 queries, 1 to 8 levels, 1, 4 and 8
+    points, fp32 and bf16 values, B = 2; a NaN location contributes zero,
+    as one outside every level does."""
+    shapes, value, loc, att = _msda_inputs(gen, b, lq, n_levels, n_points,
+                                           dtype, kind)
+    before = _kernels.LAUNCHES["ms_deform_attn"]
+    if kind == "nan":  # x, y or both NaN at 30% of the points
+        which = torch.randint(0, 10, loc.shape[:-1], generator=gen,
+                              device="cuda")
+        loc_ref = torch.where((which < 3)[..., None], -10.0, loc)
+        loc = loc.clone()
+        nan = float("nan")
+        loc[..., 0] = torch.where((which == 0) | (which == 2), nan,
+                                  loc[..., 0])
+        loc[..., 1] = torch.where((which == 1) | (which == 2), nan,
+                                  loc[..., 1])
+    else:
+        loc_ref = loc
+    got = deformable.ms_deform_attn(value, shapes, loc, att)
+    assert _kernels.LAUNCHES["ms_deform_attn"] == before + 1
+    want = deformable.ms_deform_attn_plain(value.float(), shapes, loc_ref,
+                                           att)
+    assert got.dtype == dtype and got.shape == (b, lq, 256)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=2e-2)
+    if kind == "outside":
+        assert not got.any()
