@@ -54,13 +54,37 @@ Phases, each of which raises on failure (exit code != 0):
              (layers 1 and 2 batched, bucket 2), then ``inpaint_fn`` on one
              layer, each with exact launch counts, finite latents and every
              output file; one traced pass; then ``main --inpaint`` on the
-             phase-3 sketch, with and without ``--no_intermediate``.
+             phase-3 sketch, with and without ``--no_intermediate``;
+6. serving — checkpoints and the web editor.  The seeded placeholder
+             params at full width are written in the reference layouts
+             (GroundingDINO, SAM ViT-H, Depth-Anything-V2 as fp32 ``.pth``
+             with the keys the loader must drop; the four diffusion
+             components as diffusers-layout ``.safetensors``), the pipeline
+             is built from that ``models_dir`` and must equal phase 3's
+             in-memory build (rebuilt here from the same seed, and freed
+             before serving) tensor by tensor and give bit-identical
+             detect + segment results; then the WSGI app behind the
+             threaded server on 127.0.0.1, micro-batched SAM encoder on,
+             answers, through urllib, 4 ``/save-canvas-drawing``, one
+             ``/segment-sketch`` alone, the 4 sketches one after another,
+             the 4 at once from 4 threads and two ``/inpaint`` (the first
+             builds the diffusion models from the files, which must equal
+             what was written); each request's kernel launches must be
+             exactly what it has to launch (the 4 at once: what the 4 did
+             one after another, the SAM encoder's part scaled to the
+             batched encodes that ran), the encoder must launch at least
+             once at a bucket above 1, and the 4 sketches encoded batched
+             and one by one must agree.
+
+Phase 2 also holds the SAM encoder's kernels (relpos attention, MLP,
+LayerNorm) at the SAM batch of 2 and 4 images that the micro-batched
+encoder launches.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
-and 5, error, times and bound; the last line is the device record.  Exits
-non-zero without a card, and when run outside a checkout of the
-repository.
+and 5 and in the serving run of phase 6, error, times and bound; the last
+line is the device record.  Exits non-zero without a card, and when run
+outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -68,9 +92,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -126,7 +153,8 @@ EXPECTED_LAUNCHES = {"relpos_attention": 32, "mlp_gelu": 32,
 # 12^2 tokens take sdpa.  LayerNorm: 3 per transformer block with >= 512
 # rows: 16 UNet + 7 ControlNet blocks at a CFG batch of 4 (bucket 2); at a
 # batch of 2 the mid blocks' 2 x 144 rows take the plain version.
-STEPS_X_PASSES = 60
+STEPS = 30
+STEPS_X_PASSES = 2 * STEPS
 EXPECTED_INPAINT = {
     "bucket 2": {"flash_attention/d40": 7 * STEPS_X_PASSES,
                  "flash_attention/d80": 7 * STEPS_X_PASSES,
@@ -135,6 +163,11 @@ EXPECTED_INPAINT = {
                   "flash_attention/d80": 7 * STEPS_X_PASSES,
                   "layernorm": 3 * 21 * STEPS_X_PASSES},
 }
+# one /inpaint: a single pass of the one-layer call, and nothing else
+EXPECTED_EDIT = {"flash_attention": 14 * STEPS,
+                 "flash_attention/d40": 7 * STEPS,
+                 "flash_attention/d80": 7 * STEPS,
+                 "layernorm": 3 * 21 * STEPS}
 # H100 SXM data-sheet rates (dense): bf16 tensor cores, fp32 outside them,
 # HBM3
 PEAK_BF16 = 989e12
@@ -234,13 +267,17 @@ def _fmt(ms) -> str:
     return "not captured" if ms is None else f"{ms:.4f} ms"
 
 
-def draw_sketch(path: str, size: int = 750) -> None:
-    """Deterministic line sketch: boxes, a shaded block, a diagonal."""
+def draw_sketch(path: str, size: int = 750, shift: int = 0) -> None:
+    """Deterministic line sketch: boxes, a shaded block, a diagonal; with
+    ``shift``, the boxes move by ``shift`` px down and right (another
+    sketch of the same kind)."""
     from PIL import Image
 
     g = np.full((size, size, 3), 255, np.uint8)
     for (y0, x0, y1, x1, v) in ((60, 60, 360, 380, 0), (420, 300, 700, 690, 20),
                                 (100, 480, 300, 700, 40)):
+        y0, x0 = y0 + shift // 2, x0 + shift // 2
+        y1, x1 = min(y1 + shift, size), min(x1 + shift, size)
         g[y0:y1, x0:x0 + 6] = v
         g[y0:y1, x1 - 6:x1] = v
         g[y0:y0 + 6, x0:x1] = v
@@ -431,10 +468,16 @@ def phase_kernels(results: dict) -> None:
     # tokens passes the element-wise limit).  Library: SDPA with the
     # expanded rel-pos bias as a float mask (built outside the timing), on
     # (1, BH, N, D) views: SDPA's fused backends take 4-D inputs only.
+    # Then the micro-batched encoder's SAM batches of 2 and 4 images
+    # (windows 25 * 16 * B, global 16 * B heads).
     scale = 80 ** -0.5
     for case, bh, kh in (("windows (400,196,80) kh=kw=14", 400, 14),
                          ("global (16,4096,80) kh=kw=64", 16, 64),
-                         ("global (16,2304,80) kh=kw=48 (K2b)", 16, 48)):
+                         ("global (16,2304,80) kh=kw=48 (K2b)", 16, 48),
+                         ("windows (800,196,80) SAM batch 2", 800, 14),
+                         ("global (32,4096,80) SAM batch 2", 32, 64),
+                         ("windows (1600,196,80) SAM batch 4", 1600, 14),
+                         ("global (64,4096,80) SAM batch 4", 64, 64)):
         n = kh * kh
         args = [randn(bh, n, 80), randn(bh, n, 80), randn(bh, n, 80),
                 randn(bh, n, kh), randn(bh, n, kh)]
@@ -450,23 +493,29 @@ def phase_kernels(results: dict) -> None:
                 scale=scale), rel_l2=5e-3)
         del bias
 
-    # fused MLP at SAM ViT-H: T=4096, C=1280, H=5120, weights ~ 1/sqrt(fan_in).
+    # fused MLP at SAM ViT-H: T=4096, C=1280, H=5120, weights ~ 1/sqrt(fan_in),
+    # and at the SAM batches of 2 and 4 images (T = 8192, 16384).
     # Tolerance: the hidden activation is rounded to bf16 (as on the TPU)
     # and the output is bf16 -> atol 2e-2, rtol 2e-2, and relative L2 <=
     # 5e-3.  Library: F.linear -> F.gelu -> F.linear (cuBLAS).  Then fc2
     # alone (the GEMM launch with the bias epilogue, 128 x 160 tiles) on a
     # seeded hidden activation; library F.linear.
-    t, c, h = 4096, 1280, 5120
-    args = [randn(t, c), randn(h, c, std=c ** -0.5), randn(h, std=0.1),
-            randn(c, h, std=h ** -0.5), randn(c, std=0.1)]
-    _kernel_case(
-        results, "mlp_gelu", "(4096,1280)->(5120)->(1280)", mlp.mlp_gelu,
-        mlp.mlp_gelu_plain, args, 2e-2, 2e-2,
-        bound(4.0 * t * c * h, 2.0 * (2 * t * c + 2 * h * c + h + c),
-              PEAK_BF16),
-        lambda: F.linear(F.gelu(F.linear(args[0], args[1], args[2])),
-                         args[3], args[4]), rel_l2=5e-3)
-    fc2 = [randn(t, h, std=0.5), args[3], args[4]]
+    c, h = 1280, 5120
+    weights = [randn(h, c, std=c ** -0.5), randn(h, std=0.1),
+               randn(c, h, std=h ** -0.5), randn(c, std=0.1)]
+    for case, t in (("(4096,1280)->(5120)->(1280)", 4096),
+                    ("(8192,1280)->(5120)->(1280) SAM batch 2", 8192),
+                    ("(16384,1280)->(5120)->(1280) SAM batch 4", 16384)):
+        args = [randn(t, c)] + weights
+        _kernel_case(
+            results, "mlp_gelu", case, mlp.mlp_gelu, mlp.mlp_gelu_plain, args,
+            2e-2, 2e-2,
+            bound(4.0 * t * c * h, 2.0 * (2 * t * c + 2 * h * c + h + c),
+                  PEAK_BF16),
+            lambda: F.linear(F.gelu(F.linear(args[0], args[1], args[2])),
+                             args[3], args[4]), rel_l2=5e-3)
+    t = 4096
+    fc2 = [randn(t, h, std=0.5), weights[2], weights[3]]
     _kernel_case(
         results, "mlp_gelu", "fc2 (4096,5120)->(1280)",
         lambda a, w, b: mlp._linear_bias_act(a, w, b, gelu=False), F.linear,
@@ -474,14 +523,22 @@ def phase_kernels(results: dict) -> None:
         bound(2.0 * t * h * c, 2.0 * (t * h + h * c + c + t * c), PEAK_BF16),
         lambda: F.linear(*fc2), rel_l2=5e-3)
 
-    # LayerNorm: SAM (4096, 1280) with and without the residual, Swin stage-0
-    # (40000, 96), DINOv2 (1370, 768), and the UNet's transformer blocks at
-    # the inpainting path's CFG batch of 2 (levels 0, 1 and 2 at 768^2).
+    # LayerNorm: SAM (4096, 1280) with and without the residual (and at the
+    # SAM batches of 2 and 4 images), Swin stage-0 (40000, 96), DINOv2
+    # (1370, 768), and the UNet's transformer blocks at the inpainting
+    # path's CFG batch of 2 (levels 0, 1 and 2 at 768^2).
     # Tolerance: fp32 statistics, bf16 outputs -> 2e-2 / 2e-2.  Library:
     # F.layer_norm (the residual form: add + F.layer_norm).  Bound: bytes
     # (about 8 fp32 operations per element).
     for case, rows, c, res in (("(4096,1280)", 4096, 1280, False),
                                ("(4096,1280) + residual", 4096, 1280, True),
+                               ("(8192,1280) SAM batch 2", 8192, 1280, False),
+                               ("(8192,1280) + residual SAM batch 2", 8192,
+                                1280, True),
+                               ("(16384,1280) SAM batch 4", 16384, 1280,
+                                False),
+                               ("(16384,1280) + residual SAM batch 4", 16384,
+                                1280, True),
                                ("(40000,96)", 40000, 96, False),
                                ("(1370,768) DINOv2", 1370, 768, False),
                                ("(18432,320) UNet level 0", 18432, 320, False),
@@ -646,19 +703,26 @@ def _check_outputs(out_dir: str, captured: dict) -> dict:
     return {"kept": len(kept), **counts}
 
 
+def slice_config():
+    """The default configuration with every one of the top-K boxes kept,
+    so that the placeholder weights give a full mask stack."""
+    from inklayer_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    return dataclasses.replace(
+        cfg, gdino=dataclasses.replace(cfg.gdino, box_threshold=0.0))
+
+
 def phase_slice(card: str) -> dict:
     import torch
 
-    from inklayer_tpu_torch.config import PipelineConfig
     from inklayer_tpu_torch import _kernels
     from inklayer_tpu_torch.build import build_pipeline
     from inklayer_tpu_torch.io.outputs import KEEP_LIST
     from inklayer_tpu_torch.pipeline.runner import STAGES
     from inklayer_tpu_torch.profiling import device_profile
 
-    cfg = PipelineConfig()
-    cfg = dataclasses.replace(
-        cfg, gdino=dataclasses.replace(cfg.gdino, box_threshold=0.0))
+    cfg = slice_config()
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
@@ -1134,6 +1198,396 @@ def phase_inpaint(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: checkpoints and serving
+# ---------------------------------------------------------------------------
+
+# diffusers-layout files of the four diffusion components (what
+# build.resolve_diffusion_checkpoints looks for)
+DIFFUSION_FILES = {
+    "unet": "stable-diffusion-inpainting/unet/"
+            "diffusion_pytorch_model.safetensors",
+    "vae": "stable-diffusion-inpainting/vae/"
+           "diffusion_pytorch_model.safetensors",
+    "text": "stable-diffusion-inpainting/text_encoder/model.safetensors",
+    "controlnet": "control_v11p_sd15_inpaint/"
+                  "diffusion_pytorch_model.safetensors",
+}
+
+
+def _equal_models(what: str, got, want) -> None:
+    """Two modules' state dicts equal tensor by tensor (``want`` may be a
+    state dict)."""
+    import torch
+
+    a = got.state_dict()
+    b = want if isinstance(want, dict) else want.state_dict()
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"checkpoints: {what} keys differ: "
+                             f"{sorted(set(a) ^ set(b))[:10]}")
+    for k, v in b.items():
+        if not torch.equal(a[k].cpu(), v.cpu()):
+            raise AssertionError(f"checkpoints: {what} differs at {k}")
+
+
+def write_main_checkpoints(cfg, models_dir: str) -> float:
+    """The seeded fp32 placeholder params of GroundingDINO, SAM and
+    Depth-Anything-V2 (build_* with seed 0, on the CPU) as reference-layout
+    ``.pth`` files, with the keys a published checkpoint carries and the
+    loader must drop; returns the bytes written."""
+    import torch
+
+    from inklayer_tpu_torch.build import build_depth, build_detector, build_sam
+
+    gdino = build_detector(cfg, "cpu", torch.float32, seed=0).model
+    sd = {"module." + k: v for k, v in gdino.state_dict().items()}
+    h = cfg.gdino.hidden_dim
+    bert = cfg.gdino.bert.hidden_size
+    sd.update({  # the BERT pooler, the denoising embedding, shared copies
+        "module.bert.pooler.dense.weight": torch.zeros(bert, bert),
+        "module.bert.pooler.dense.bias": torch.zeros(bert),
+        "module.bert.embeddings.position_ids": torch.arange(512)[None],
+        "module.label_enc.weight": torch.zeros(2001, h),
+        "module.bbox_embed.1.layers.0.weight": torch.zeros(h, h),
+        "module.transformer.decoder.bbox_embed.0.layers.0.weight":
+            torch.zeros(h, h)})
+    torch.save({"model": sd}, os.path.join(models_dir, "inklayer_gdino.pth"))
+    del gdino, sd
+    # SAM: its mask-prompt convnet (mask_downscaling) is part of the module
+    sam = build_sam(cfg, "cpu", torch.float32, seed=0).model
+    torch.save(sam.state_dict(),
+               os.path.join(models_dir, "sam_vit_h_4b8939.pth"))
+    del sam
+    depth = build_depth(cfg, "cpu", torch.float32, seed=0).model
+    sd = dict(depth.state_dict())
+    f = cfg.depth.features
+    sd["pretrained.mask_token"] = torch.zeros(1, cfg.depth.embed_dim)
+    for conv in ("conv1", "conv2"):  # refinenet4's unit that never runs
+        key = f"depth_head.scratch.refinenet4.resConfUnit1.{conv}"
+        sd[f"{key}.weight"] = torch.zeros(f, f, 3, 3)
+        sd[f"{key}.bias"] = torch.zeros(f)
+    torch.save(sd, os.path.join(
+        models_dir, f"depth_anything_v2_{cfg.depth.encoder}.pth"))
+    return float(sum(os.path.getsize(os.path.join(models_dir, n))
+                     for n in os.listdir(models_dir)))
+
+
+def write_diffusion_checkpoints(cfg, models_dir: str) -> dict:
+    """The seeded placeholder diffusion models as built for the card (bf16)
+    written as diffusers-layout ``.safetensors``; returns {component:
+    state dict written (CPU)}."""
+    import torch
+
+    from inklayer_tpu_torch.build import build_diffusion_models
+    from inklayer_tpu_torch.io.weights import save_safetensors
+
+    models = build_diffusion_models(cfg, "cuda", torch.bfloat16, seed=0)
+    written = {}
+    for name, rel in DIFFUSION_FILES.items():
+        path = os.path.join(models_dir, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        written[name] = {k: v.cpu() for k, v in
+                         models[name].state_dict().items()}
+        save_safetensors(written[name], path)
+    del models
+    torch.cuda.empty_cache()
+    return written
+
+
+def detect_segment(pipe, image) -> dict:
+    """The default run's detect + segment on one image, as the runner
+    chains them: top-K boxes, scores, low-res logits and the masks."""
+    from inklayer_tpu_torch.pipeline.runner import boxes_cxcywh_to_sam_space
+
+    h, w = image.shape[:2]
+    fin, scores, boxes = pipe.detector.detect_device(image)
+    state = pipe.sam.compute_image_state(image)
+    lowres, iou = pipe.sam.decode_lowres_state(
+        state, boxes_cxcywh_to_sam_space(boxes, (h, w), state["scale"]))
+    det = fin()
+    masks = pipe.sam.masks_from_lowres(state, lowres, max(len(det["boxes"]),
+                                                          1))
+    return {"scores": scores, "boxes": boxes, "lowres": lowres, "iou": iou,
+            "masks": masks}
+
+
+def _post(base: str, path: str, obj: dict):
+    """A JSON request to the server through urllib: (status, body,
+    seconds)."""
+    import urllib.request
+
+    req = urllib.request.Request(base + path, json.dumps(obj).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+
+def phase_serving(card: str) -> dict:
+    from wsgiref.simple_server import make_server
+
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch.build import build_pipeline
+    from inklayer_tpu_torch.serve.app import InkLayerApp
+    from inklayer_tpu_torch.serve.server import ThreadingWSGIServer
+
+    cfg = slice_config()
+    models_dir = tempfile.mkdtemp(prefix="models_", dir=WORK)
+    web_root = tempfile.mkdtemp(prefix="web_", dir=WORK)
+    try:
+        # (a) checkpoints: write, build from them, compare
+        t0 = time.perf_counter()
+        nbytes = write_main_checkpoints(cfg, models_dir)
+        log(f"  wrote GroundingDINO, SAM and Depth-Anything-V2 as fp32 .pth: "
+            f"{nbytes / 2 ** 30:.2f} GiB in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pipe = build_pipeline(cfg, device="cuda", dtype=torch.bfloat16,
+                              models_dir=models_dir)
+        torch.cuda.synchronize()
+        log(f"  build_pipeline(models_dir=...) {time.perf_counter() - t0:.1f}"
+            f" s (per component: the [build] lines above) [{card}]")
+        # phase 3's in-memory build, again from seed 0; freed before serving
+        in_memory = build_pipeline(cfg, device="cuda", dtype=torch.bfloat16,
+                                   seed=0)
+        for what, a, b in (("gdino", pipe.detector.model,
+                            in_memory.detector.model),
+                           ("sam", pipe.sam.model, in_memory.sam.model),
+                           ("depth", pipe.depth.model, in_memory.depth.model)):
+            _equal_models(what, a, b)
+        rgb = np.array(Image.open(os.path.join(WORK, "sketch750.png"))
+                       .convert("RGB"))
+        image = torch.from_numpy(rgb).cuda()
+        got, want = detect_segment(pipe, image), detect_segment(in_memory,
+                                                                image)
+        for key in want:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"checkpoints: {key} of detect + segment "
+                                     f"differs from the in-memory build")
+        log(f"  loaded models equal the in-memory build tensor by tensor; "
+            f"detect + segment bit-identical ({tuple(want['masks'].shape)} "
+            f"masks, {int(want['masks'].sum())} px)")
+        del in_memory, got, want, image
+        torch.cuda.empty_cache()
+        for name in os.listdir(models_dir):  # the pipeline holds them now
+            os.remove(os.path.join(models_dir, name))
+        t0 = time.perf_counter()
+        written = write_diffusion_checkpoints(cfg, models_dir)
+        nbytes = sum(os.path.getsize(os.path.join(models_dir, r))
+                     for r in DIFFUSION_FILES.values())
+        log(f"  wrote the diffusion components as bf16 .safetensors: "
+            f"{nbytes / 2 ** 30:.2f} GiB in {time.perf_counter() - t0:.1f} s")
+
+        # (b) serving
+        app = InkLayerApp(pipeline=pipe, root_dir=web_root, micro_batch=True)
+        encoder = pipe._batched_encoder
+        server = make_server("127.0.0.1", 0, app,
+                             server_class=ThreadingWSGIServer)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            res = serve_requests(
+                card, f"http://127.0.0.1:{server.server_port}", app, web_root)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            encoder.close()
+        diffusion = pipe.inpainter.get_pipeline()
+        for name, attr in (("text", "text_encoder"), ("unet", "unet"),
+                           ("controlnet", "controlnet"), ("vae", "vae")):
+            _equal_models(name, getattr(diffusion, attr), written[name])
+        log("  diffusion components loaded by the server equal what was "
+            "written, tensor by tensor")
+
+        # the encoder's batch dimension end to end: B = 4 against B = 1
+        pres = []
+        for i in range(4):
+            img = np.array(Image.open(os.path.join(
+                web_root, "static", "uploads", f"serve{i}.png")).convert("RGB"))
+            pres.append(pipe.sam._preprocess_meta(
+                torch.from_numpy(img).cuda())[0])
+        with torch.inference_mode():
+            batched = pipe.sam.model.encode(torch.stack(pres)).float()
+            rels = [float((batched[i] - one[0].float()).norm()
+                          / one[0].float().norm())
+                    for i, one in enumerate(pipe.sam.model.encode(p[None])
+                                            for p in pres)]
+        log(f"  SAM embeddings of the 4 sketches, batch 4 against one by one:"
+            f" relative L2 {', '.join(f'{r:.3e}' for r in rels)} (limit "
+            f"5e-3) [{card}]")
+        if max(rels) > 5e-3:
+            raise AssertionError(f"serving: batched embeddings off by "
+                                 f"{max(rels):.3e}")
+        del pipe, diffusion, app
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        shutil.rmtree(models_dir, ignore_errors=True)
+        shutil.rmtree(web_root, ignore_errors=True)
+
+
+def _check_layers(app_root: str, urls) -> None:
+    for url in urls:
+        if not os.path.exists(os.path.join(app_root, url.lstrip("/"))):
+            raise AssertionError(f"serving: layer URL {url} names no file")
+
+
+def _delta(after: dict, before: dict) -> dict:
+    """The launches between two snapshots of the counters, zeros left
+    out."""
+    d = {k: after.get(k, 0) - before.get(k, 0) for k in set(after) | set(before)}
+    return {k: v for k, v in sorted(d.items()) if v}
+
+
+def serve_requests(card: str, base: str, app, web_root: str) -> dict:
+    """The requests of phase 6 through the running server: one
+    ``/segment-sketch`` alone, the 4 sketches one after another, the 4 at
+    once, two ``/inpaint``.  Each request's kernel launches are held to
+    what it must launch: a sketch alone launches the default run's counts;
+    the 4 at once launch what the 4 did one after another, with the SAM
+    encoder's part scaled from 4 encodes to the batched encodes that ran.
+    Returns the launches of the whole serving run."""
+    import base64
+
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch import _kernels
+
+    pipe = app.pipeline
+    for i in range(4):
+        path = os.path.join(WORK, f"serve{i}.png")
+        draw_sketch(path, shift=24 * i)
+        with open(path, "rb") as f:
+            data = base64.b64encode(f.read()).decode()
+        status, body, _ = _post(base, "/save-canvas-drawing", {
+            "imageData": "data:image/png;base64," + data,
+            "filename": f"serve{i}"})
+        if status != 200 or body["filename"] != f"serve{i}.png":
+            raise AssertionError(f"serving: save-canvas-drawing {status} "
+                                 f"{body}")
+    encoder = pipe._batched_encoder
+    # the launches of one SAM encode (any batch), read outside the run
+    rgb = np.array(Image.open(os.path.join(WORK, "serve0.png")).convert("RGB"))
+    pre = pipe.sam._preprocess_meta(torch.from_numpy(rgb).cuda())[0]
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        pipe.sam.model.encode(pre[None])
+    per_encode = _delta(_kernels.launch_counts(), {})
+    _kernels.reset_launch_counts()
+
+    def segment(name, out):
+        status, body, sec = _post(base, "/segment-sketch",
+                                  {"imageName": name})
+        if status != 200 or not body["layers"]:
+            raise AssertionError(f"serving: segment-sketch {name}: {status} "
+                                 f"{body}")
+        _check_layers(web_root, body["layers"])
+        out[name] = (sec, len(body["layers"]))
+
+    def one(name, out):
+        """A request on its own: one bucket-1 encode and the default
+        run's launches."""
+        counts, enc = _kernels.launch_counts(), dict(encoder.batcher.launches)
+        segment(name, out)
+        d = _delta(_kernels.launch_counts(), counts)
+        e = _delta(encoder.batcher.launches, enc)
+        if e != {1: 1} or any(d.get(k, 0) != n
+                              for k, n in EXPECTED_LAUNCHES.items()):
+            raise AssertionError(f"serving: {name} alone: launches {d}, "
+                                 f"encoder {e}")
+        return d
+
+    alone = {}
+    one("serve0", alone)
+    log(f"  /segment-sketch alone [{card}]: {alone['serve0'][0] * 1e3:.1f} ms"
+        f" ({alone['serve0'][1]} layers; the first request of this pipeline)")
+    serial = {}
+    t0 = time.perf_counter()
+    serial_counts = [one(f"serve{i}", serial) for i in range(4)]
+    serial_s = time.perf_counter() - t0
+    secs = [serial[f"serve{i}"][0] * 1e3 for i in range(4)]
+    log(f"  /segment-sketch, the 4 one after another [{card}]: "
+        f"{serial_s * 1e3:.1f} ms in all ({4 / serial_s:.3f} requests/s), "
+        f"each {', '.join(f'{x:.1f}' for x in secs)} ms")
+
+    torch.cuda.reset_peak_memory_stats()
+    together, errors = {}, []
+
+    def guarded(name):
+        try:
+            segment(name, together)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    counts, enc = _kernels.launch_counts(), dict(encoder.batcher.launches)
+    threads = [threading.Thread(target=guarded, args=(f"serve{i}",))
+               for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    window_s = time.perf_counter() - t0
+    if errors or len(together) != 4:
+        raise AssertionError(f"serving: concurrent requests failed: {errors}")
+    d = _delta(_kernels.launch_counts(), counts)
+    e = _delta(encoder.batcher.launches, enc)
+    encodes = sum(e.values())
+    want = {}
+    for c in serial_counts:
+        for k, n in c.items():
+            want[k] = want.get(k, 0) + n
+    for k, n in per_encode.items():
+        want[k] = want.get(k, 0) + (encodes - 4) * n
+    want = {k: n for k, n in sorted(want.items()) if n}
+    if d != want:
+        raise AssertionError(f"serving: 4 at once launched {d}, expected "
+                             f"{want} ({encodes} encodes: {e})")
+    if not any(b > 1 for b in e):
+        raise AssertionError(f"serving: no encoder launch at a bucket above "
+                             f"1: {e}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    secs = sorted(v[0] * 1e3 for v in together.values())
+    log(f"  /segment-sketch, 4 at once from 4 threads [{card}]: "
+        f"{window_s * 1e3:.1f} ms in all ({4 / window_s:.3f} requests/s), p50 "
+        f"{statistics.median(secs):.1f} ms, max {secs[-1]:.1f} ms (each "
+        f"{', '.join(f'{x:.1f}' for x in secs)}); peak memory allocated "
+        f"{peak:.2f} GiB; encoder launches per bucket {e}; kernel launches "
+        f"as expected from the 4 one after another ({encodes} encodes)")
+    inpaint = []
+    for label in ("first: builds the diffusion models from the files",
+                  "warm"):
+        counts = _kernels.launch_counts()
+        status, body, sec = _post(base, "/inpaint", {
+            "image_name": "serve0", "layer_id": 0,
+            "layer_path": "/static/outputs/serve0/complete_layers_rgba/"
+                          "layer_0.png", "prompt": "a cat"})
+        if status != 200:
+            raise AssertionError(f"serving: inpaint {status} {body}")
+        _check_layers(web_root, [body["layer_url"]])
+        d = _delta(_kernels.launch_counts(), counts)
+        if d != EXPECTED_EDIT:
+            raise AssertionError(f"serving: /inpaint launched {d}, expected "
+                                 f"{EXPECTED_EDIT}")
+        inpaint.append(sec * 1e3)
+        log(f"  /inpaint ({label}) [{card}]: {sec * 1e3:.1f} ms")
+    counts = _kernels.launch_counts()
+    missing = [n for n in KERNELS if not counts.get(n)]
+    log(f"  serving run [{card}]: launches {counts}; encoder launches per "
+        f"bucket {encoder.batcher.launches}, requests they served "
+        f"{encoder.batcher.served}")
+    if missing:
+        raise AssertionError(f"serving: kernels never launched: {missing}")
+    return {"launches": counts, "alone_ms": alone["serve0"][0] * 1e3,
+            "serial_ms": serial_s * 1e3, "together_ms": secs,
+            "window_ms": window_s * 1e3, "inpaint_ms": inpaint,
+            "peak_gib": peak, "buckets": dict(encoder.batcher.launches),
+            "served": dict(encoder.batcher.served)}
+
+
 def ptxas_entries(log_text: str) -> dict:
     """{mangled kernel name: {"regs", "stack", "spill_stores", "spill_loads",
     "smem"}} from nvcc's ``-Xptxas -v`` messages."""
@@ -1256,6 +1710,11 @@ def main() -> int:
     inpaint_res = phase_inpaint(card)
     log(f"  phase 5: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 6: checkpoints and serving [{card}]")
+    t0 = time.perf_counter()
+    serve_res = phase_serving(card)
+    log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -1263,11 +1722,13 @@ def main() -> int:
         worst = max(cases, key=lambda c: c["bound_ms"])
         line["kernels"].append({
             # ms, plain_ms, bound_ms, library_ms: sums over the phase-2
-            # cases; launches: the last timed runs of phases 3 and 5
+            # cases; launches: the last timed runs of phases 3 and 5 and
+            # the serving run of phase 6
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
-            + inpaint_res["bucket2"]["counts"].get(name, 0),
+            + inpaint_res["bucket2"]["counts"].get(name, 0)
+            + serve_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

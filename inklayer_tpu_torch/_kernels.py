@@ -19,12 +19,15 @@ stream (:func:`stream`) and the sizes as plain Python numbers, which one
 ``struct.pack_into`` writes into a buffer bound to the entry point when the
 library loads, and ctypes converts one address instead of a dozen
 arguments.  The library is loaded as a ``PyDLL``, which keeps the GIL
-through the call, so no other thread repacks the buffer while C reads it.
+through the call, so no other thread repacks the buffer while C reads it;
+a lock per entry point keeps another thread from repacking it between the
+pack and the call (the web app launches from several threads).
 :func:`lib` returns the loaded library without a lock.
 
 ``LAUNCHES`` holds one plain integer per kernel.  Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show which
-kernels its main path went through.  A kernel built in several instances
+where it launches its kernel and nowhere else (under a lock: concurrent
+requests launch from several threads), so a run can show which kernels
+its main path went through.  A kernel built in several instances
 (the flash attention at head_dim 40, 64 and 80) also counts each instance
 under ``"<kernel>/<instance>"``.
 """
@@ -57,6 +60,7 @@ LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 build_seconds = None  # wall time of the build this process ran (None: reused)
 build_log = {}  # source name -> nvcc's stderr (ptxas -v), from a verbose build
 
@@ -95,7 +99,7 @@ class _Entry:
     """A launch entry point: packs its arguments into the struct buffer
     bound to it and passes the buffer's address; returns the CUDA status."""
 
-    __slots__ = ("_pack", "_buf", "_addr", "_fn")
+    __slots__ = ("_pack", "_buf", "_addr", "_fn", "_lock")
 
     def __init__(self, fn, fmt: str):
         layout = struct.Struct("@" + fmt)
@@ -105,10 +109,12 @@ class _Entry:
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         self._fn = fn
+        self._lock = threading.Lock()
 
     def __call__(self, *args) -> int:
-        self._pack(self._buf, 0, *args)
-        return self._fn(self._addr)
+        with self._lock:
+            self._pack(self._buf, 0, *args)
+            return self._fn(self._addr)
 
 
 class Library:
@@ -135,10 +141,11 @@ def launch_counts() -> dict:
 
 
 def count_launch(name: str, instance: str = "") -> None:
-    LAUNCHES[name] += 1
-    if instance:
-        key = f"{name}/{instance}"
-        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if instance:
+            key = f"{name}/{instance}"
+            LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def _sources(csrc_dir: str = CSRC_DIR):

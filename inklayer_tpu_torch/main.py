@@ -3,12 +3,16 @@
     python -m inklayer_tpu_torch.main --img <path> | --dir <path>
                                       [--out_dir ./output] [--config cfg.json]
                                       [--no_intermediate] [--inpaint]
-                                      [--device cuda]
+                                      [--models_dir DIR] [--device cuda]
 
 Same input flags as the JAX package's ``main.py``: the default run, and
 with ``--inpaint`` the layer completion (SD1.5-inpaint + ControlNet).  It
-runs on the card unless ``--device cpu`` is given.  Parameters are seeded
-placeholders (no checkpoints ship with the repo).
+runs on the card unless ``--device cpu`` is given.  ``--models_dir`` holds
+the reference checkpoints (``inklayer_gdino.pth``,
+``sam_vit_h_4b8939.pth``, ``depth_anything_v2_vitb.pth`` and the diffusers
+layout of :func:`inklayer_tpu_torch.build.resolve_diffusion_checkpoints`);
+a model whose file is missing gets seeded placeholder params (no
+checkpoints ship with the repo).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ def main(argv=None):
     parser.add_argument("--inpaint", action="store_true")
     parser.add_argument("--config", type=str, default=None,
                         help="JSON PipelineConfig path")
+    parser.add_argument("--models_dir", type=str, default=None,
+                        help="directory of reference checkpoints")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -43,7 +49,8 @@ def main(argv=None):
 
     cfg = load_config(args.config) if args.config else PipelineConfig()
     dtype = torch.bfloat16 if args.device.startswith("cuda") else torch.float32
-    pipeline = build_pipeline(cfg, device=args.device, dtype=dtype)
+    pipeline = build_pipeline(cfg, device=args.device, dtype=dtype,
+                              models_dir=args.models_dir)
     if args.img is not None:
         paths = [args.img]
     else:

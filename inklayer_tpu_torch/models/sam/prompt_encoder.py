@@ -2,9 +2,11 @@
 :mod:`inklayer_tpu.models.sam.prompt_encoder`).
 
 Box prompts are the only prompts the pipeline sends.  Point and mask
-prompts are not ported yet.  As in the JAX package, whose parameter tree
-holds only what the box path uses, the mask-prompt convnet
-(``mask_downscaling.*``) is absent; it comes with mask prompts.
+prompts are not ported yet.  The mask-prompt convnet
+(``mask_downscaling.*``, reference prompt_encoder.py) is held all the same,
+so that a reference SAM checkpoint loads strictly; the box path does not
+run it.  (The JAX package maps those keys and drops them: its parameter
+tree holds only what the box path uses.)
 """
 
 from __future__ import annotations
@@ -14,6 +16,23 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channels of an NCHW map (reference
+    common.py LayerNorm2d)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        u = x.mean(1, keepdim=True)
+        s = (x - u).pow(2).mean(1, keepdim=True)
+        x = (x - u) / torch.sqrt(s + self.eps)
+        return self.weight[:, None, None] * x + self.bias[:, None, None]
 
 
 class PositionEmbeddingRandom(nn.Module):
@@ -55,6 +74,12 @@ class PromptEncoder(nn.Module):
             nn.Embedding(1, embed_dim) for _ in range(4))
         self.not_a_point_embed = nn.Embedding(1, embed_dim)
         self.no_mask_embed = nn.Embedding(1, embed_dim)
+        # mask prompts (not ported): checkpoint keys mask_downscaling.{0,1,3,4,6}
+        # (the reference's mask_in_chans = 16)
+        self.mask_downscaling = nn.Sequential(
+            nn.Conv2d(1, 4, kernel_size=2, stride=2), LayerNorm2d(4),
+            nn.GELU(), nn.Conv2d(4, 16, kernel_size=2, stride=2),
+            LayerNorm2d(16), nn.GELU(), nn.Conv2d(16, embed_dim, kernel_size=1))
 
     def get_dense_pe(self) -> torch.Tensor:
         """(1, H, W, embed_dim) PE of the embedding grid."""

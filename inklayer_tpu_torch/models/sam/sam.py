@@ -63,12 +63,19 @@ class Sam(nn.Module):
 
 
 class SamPredictor:
-    """Box-prompted predictor over a :class:`Sam` module."""
+    """Box-prompted predictor over a :class:`Sam` module.
 
-    def __init__(self, model: Sam, box_capacity: int = 64):
+    ``encode_fn`` overrides the image-encoder call: it takes the
+    preprocessed (S, S, 3) image and returns its (G, G, C) embedding.
+    Serving sets it to a micro-batched encoder
+    (:class:`inklayer_tpu_torch.serve.batcher.BatchedSamEncoder`), so that
+    concurrent requests share one batched ViT launch."""
+
+    def __init__(self, model: Sam, box_capacity: int = 64, encode_fn=None):
         self.model = model
         self.cfg = model.cfg
         self.box_capacity = box_capacity
+        self.encode_fn = encode_fn
 
     @property
     def device(self) -> torch.device:
@@ -93,7 +100,11 @@ class SamPredictor:
         """(H, W, 3) uint8 image on the model's device -> state dict with
         the (1, G, G, C) embedding and the resize bookkeeping."""
         pre, meta = self._preprocess_meta(image)
-        return {"embedding": self.model.encode(pre[None]), **meta}
+        if self.encode_fn is not None:
+            emb = self.encode_fn(pre)[None]
+        else:
+            emb = self.model.encode(pre[None])
+        return {"embedding": emb, **meta}
 
     @torch.inference_mode()
     def decode_lowres_state(self, state: dict, boxes_model: torch.Tensor):

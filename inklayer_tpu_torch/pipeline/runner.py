@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -73,7 +74,10 @@ def _save_sketch(path: str, image: np.ndarray, masks: torch.Tensor) -> None:
 
 class InkLayerPipeline:
     """The default run over models built once (see
-    :func:`inklayer_tpu_torch.build.build_pipeline`)."""
+    :func:`inklayer_tpu_torch.build.build_pipeline`).  Several threads may
+    call :meth:`run` at once (the web app serves requests concurrently):
+    each keeps its own stage times, and the inpainting stage runs one call
+    at a time under :attr:`inpaint_lock`."""
 
     def __init__(self, detector, sam_predictor, depth_estimator,
                  cfg: PipelineConfig = PipelineConfig(), inpainter=None):
@@ -83,15 +87,37 @@ class InkLayerPipeline:
         self.inpainter = inpainter
         self.cfg = cfg
         self.device = sam_predictor.device
-        # seconds per stage of the last run() (STAGES, and "inpaint" when
-        # it ran; device work included: each stage ends with a synchronise)
-        self.stage_times: dict = {}
+        # one diffusion call on the device at a time: bounds device memory
+        # to one in-flight 768^2 sample when requests run concurrently
+        self.inpaint_lock = threading.Lock()
+        self._local = threading.local()
+        self._batched_encoder = None
+
+    @property
+    def stage_times(self) -> dict:
+        """Seconds per stage of this thread's last :meth:`run` (STAGES, and
+        "inpaint" when it ran; device work included: each stage ends with
+        a synchronise of the device, so concurrent runs count each
+        other's device work)."""
+        return getattr(self._local, "stage_times", {})
+
+    def enable_batched_encoder(self):
+        """Route SAM's image encoding through a micro-batcher, so that
+        concurrent runs share one batched ViT launch; returns the
+        :class:`inklayer_tpu_torch.serve.batcher.BatchedSamEncoder`."""
+        if self._batched_encoder is None:
+            from inklayer_tpu_torch.serve.batcher import BatchedSamEncoder
+
+            self._batched_encoder = BatchedSamEncoder(self.sam.model)
+            self.sam.encode_fn = self._batched_encoder.encode
+        return self._batched_encoder
 
     def _stage(self, name: str, t0: float) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
-        self.stage_times[name] = self.stage_times.get(name, 0.0) + (t1 - t0)
+        times = self._local.stage_times
+        times[name] = times.get(name, 0.0) + (t1 - t0)
         return t1
 
     def run(self, input_path: str, out_base_dir: str,
@@ -100,7 +126,7 @@ class InkLayerPipeline:
         ``inpaint``; returns its output directory."""
         cfg = self.cfg
         rcfg = cfg.refine
-        self.stage_times = {}
+        self._local.stage_times = {}
         t0 = time.perf_counter()
         input_name = os.path.basename(input_path).split(".")[0]
         image_pil = Image.open(input_path).convert("RGB")
@@ -228,10 +254,12 @@ class InkLayerPipeline:
         t0 = self._stage("write", t0)
         if inpaint:  # reads masks_final/ and input.png from disk
             if self.inpainter is None:
-                raise RuntimeError("inpainting requested but the pipeline "
-                                   "has no inpainter")
-            self.inpainter.run_on_sketch_dir(out_dir)
-            t0 = self._stage("inpaint", t0)
+                print("Inpainting requested but no inpainter is configured; "
+                      "skipping (provide diffusion weights to enable).")
+            else:
+                with self.inpaint_lock:
+                    self.inpainter.run_on_sketch_dir(out_dir)
+                t0 = self._stage("inpaint", t0)
         if no_intermediate:
             io_out.cleanup_intermediate(out_dir)
             self._stage("write", t0)

@@ -33,15 +33,24 @@ def random_jax_params(model, args, seed: int, std: float = 0.2):
         shapes)
 
 
+# the mask-prompt convnet: the port's PromptEncoder holds it (so that a
+# reference checkpoint loads strictly), the JAX param tree does not
+MASK_PROMPT = "prompt_encoder.mask_downscaling."
+
+
 def sam_pair(cfg=TINY, seed: int = 1, std: float = 0.2):
-    """(JAX Sam, its params, the bridged torch Sam)."""
+    """(JAX Sam, its params, the bridged torch Sam).  The mask-prompt
+    convnet, which no box-prompted path runs, keeps the module's own
+    values."""
     jm = JaxSam(cfg)
     args = (jnp.zeros((1, cfg.image_size, cfg.image_size, 3)),
             jnp.zeros((4, 4)))
     params = random_jax_params(jm, args, seed, std)
     tm = Sam(cfg)
-    tm.load_state_dict(jax_to_torch_state_dict(flatten_tree(params["params"]),
-                                               SAM_RULES), strict=True)
+    sd = jax_to_torch_state_dict(flatten_tree(params["params"]), SAM_RULES)
+    sd.update({k: v for k, v in tm.state_dict().items()
+               if k.startswith(MASK_PROMPT)})
+    tm.load_state_dict(sd, strict=True)
     return jm, params, tm.eval()
 
 
