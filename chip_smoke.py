@@ -76,15 +76,34 @@ Phases, each of which raises on failure (exit code != 0):
              once at a bucket above 1, and the 4 sketches encoded batched
              and one by one must agree.
 
+7. sweep   — the directory sweep (``InkLayerPipeline.run_dir``) at full
+             width on 16 distinct 750^2 sketches with ``no_intermediate``
+             (the JAX bench's sweep configuration): the 16 runs one after
+             another (the outputs and launches every sweep is held to),
+             one warm sweep, then one timed sweep each with 1 worker (the
+             lookahead), 2 and 4 workers, and batches of 2 and 4; each
+             sweep's launches exact (the runs', with detection and SAM's
+             encode counted once per batch of images), its outputs equal
+             to the runs' file for file (IoU >= 0.99 of the final masks
+             where batched), sketches/s; one sweep keeping every output
+             (all 12 items per sketch), one traced sweep (idle share),
+             peak memory; then ``main --dir --batch 2 --num_hosts 2
+             --host_id 1`` on 4 sketches must write sketches 1 and 3;
+8. conv    — the 3x3 NHWC convolution's entry point,
+             ``scripts/torch_conv_ab.py``, at its four levels.
+
 Phase 2 also holds the SAM encoder's kernels (relpos attention, MLP,
 LayerNorm) at the SAM batch of 2 and 4 images that the micro-batched
-encoder launches.
+encoder launches, multi-scale deformable attention at GroundingDINO's
+batch of 2 and 4 images (the batched sweep), and the 3x3 convolution at
+the four levels of the TPU prototype ``scripts/ablate_pallas_conv.py``.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
-and 5 and in the serving run of phase 6, error, times and bound; the last
-line is the device record.  Exits non-zero without a card, and when run
-outside a checkout of the repository.
+and 5, the serving run of phase 6, the timed sweeps of phase 7 and phase
+8, error, times and bound; the last line is the device record.  Exits
+non-zero without a card, and when run outside a checkout of the
+repository.
 """
 
 from __future__ import annotations
@@ -138,6 +157,10 @@ KERNELS = {
         "cuda", "inklayer_tpu_torch/csrc/flash_attention.cu", K7),
     "flash_attention/d80": (
         "cuda", "inklayer_tpu_torch/csrc/flash_attention.cu", K7),
+    "conv3x3": (
+        "cuda", "inklayer_tpu_torch/csrc/conv3x3.cu",
+        "scripts/ablate_pallas_conv.py:51 make_pallas_conv_concat + "
+        "scripts/ablate_pallas_conv.py:106 make_pallas_conv"),
 }
 # launches of each kernel in one default run of the full models: SAM's 32
 # blocks, GDINO's 6 + 6 deformable layers, DINOv2's 12 blocks, one cleaning
@@ -443,8 +466,8 @@ def phase_kernels(results: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from inklayer_tpu_torch.ops import (attention, components, deformable,
-                                        mlp, norm)
+    from inklayer_tpu_torch.ops import (attention, components, conv,
+                                        deformable, mlp, norm)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -583,6 +606,49 @@ def phase_kernels(results: dict) -> None:
             bound(lq * 8 * 16 * (4 * 32 * 2 + 4 * 6),
                   2.0 * s_tot * 256 + 4.0 * lq * 8 * 16 * 3 + 2.0 * lq * 256,
                   PEAK_FP32))
+    # the batched sweep's GroundingDINO at 2 and 4 images: b images' values,
+    # queries and outputs in one launch
+    for b in (2, 4):
+        value_b = randn(b, s_tot, 8, 32)
+        for case, lq in ((f"encoder Lq=13294 GDINO batch {b}", s_tot),
+                         (f"decoder Lq=900 GDINO batch {b}", 900)):
+            loc = (torch.rand(b, lq, 8, 4, 4, 2, generator=gen, device=dev)
+                   * 1.2 - 0.1)
+            att = torch.softmax(torch.randn(b, lq, 8, 16, generator=gen,
+                                            device=dev), -1).reshape(
+                b, lq, 8, 4, 4)
+            _kernel_case(
+                results, "ms_deform_attn", case,
+                lambda v: deformable.ms_deform_attn(v, shapes, loc, att),
+                lambda v: deformable.ms_deform_attn_plain(v, shapes, loc,
+                                                          att),
+                [value_b], 1e-2, 2e-2,
+                bound(b * lq * 8 * 16 * (4 * 32 * 2 + 4 * 6),
+                      b * (2.0 * s_tot * 256 + 4.0 * lq * 8 * 16 * 3
+                           + 2.0 * lq * 256), PEAK_FP32))
+        del value_b
+
+    # the 3x3 NHWC convolution (KC) at the prototype's four levels, batch 2
+    # (scripts/ablate_pallas_conv.py LEVELS): x normal, w normal x 0.02, as
+    # there.  Tolerance: K = 9C sums up to 11,520 fp32 products before one
+    # bf16 rounding -> relative L2 <= 5e-3, element-wise 1e-2 / 1e-2.
+    # Library: F.conv2d (cuDNN, bf16) on the channels_last NCHW view with
+    # OIHW weights.  Bound: 2 B H W 9 C Cout on the tensor cores; bytes:
+    # x, w and the output once.
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from torch_conv_ab import LEVELS as CONV_LEVELS, conv_bound
+
+    for li, (h, w, c) in enumerate(CONV_LEVELS):
+        x = randn(2, h, w, c)
+        wt = randn(3, 3, c, c, std=0.02)
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0,
+                                                           1).contiguous()
+        _kernel_case(
+            results, "conv3x3", f"level {li} (2,{h},{w},{c})->{c}",
+            conv.conv3x3_nhwc, conv.conv3x3_nhwc_plain, [x, wt], 1e-2, 1e-2,
+            conv_bound(2, h, w, c, c),
+            lambda: F.conv2d(x_nchw, w_oihw, padding=1), rel_l2=5e-3)
+        del x, wt, x_nchw, w_oihw
 
     # flash attention.  Head dim 64: DINOv2 ViT-B at the 518^2 bucket, 12
     # heads x 1370 tokens (the last 128-key tile holds 90 keys), and
@@ -1575,7 +1641,9 @@ def serve_requests(card: str, base: str, app, web_root: str) -> dict:
         inpaint.append(sec * 1e3)
         log(f"  /inpaint ({label}) [{card}]: {sec * 1e3:.1f} ms")
     counts = _kernels.launch_counts()
-    missing = [n for n in KERNELS if not counts.get(n)]
+    # every kernel of the default run and the inpainting path (KC's path
+    # is its own entry point, phase 8)
+    missing = [n for n in KERNELS if n != "conv3x3" and not counts.get(n)]
     log(f"  serving run [{card}]: launches {counts}; encoder launches per "
         f"bucket {encoder.batcher.launches}, requests they served "
         f"{encoder.batcher.served}")
@@ -1586,6 +1654,211 @@ def serve_requests(card: str, base: str, app, web_root: str) -> dict:
             "window_ms": window_s * 1e3, "inpaint_ms": inpaint,
             "peak_gib": peak, "buckets": dict(encoder.batcher.launches),
             "served": dict(encoder.batcher.served)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the directory sweep
+# ---------------------------------------------------------------------------
+
+SWEEP_SKETCHES = 16
+# the timed sweeps: (label, run_dir keywords); the batched ones with the
+# default workers
+SWEEP_MODES = (("workers 1 (lookahead)", {"workers": 1}),
+               ("workers 2", {"workers": 2}),
+               ("workers 4", {"workers": 4}),
+               ("batch 2", {"batch_size": 2}),
+               ("batch 4", {"batch_size": 4}))
+
+
+def _tree_files(out_dir: str) -> dict:
+    """{relative path: bytes} of every file under ``out_dir``."""
+    got = {}
+    for root, _, names in os.walk(out_dir):
+        for n in names:
+            path = os.path.join(root, n)
+            with open(path, "rb") as f:
+                got[os.path.relpath(path, out_dir)] = f.read()
+    return got
+
+
+def _add_counts(total: dict, counts: dict, times: int = 1) -> dict:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + times * n
+    return total
+
+
+def _same_by_iou(got_dir: str, want_dir: str) -> float:
+    """The least IoU of the final masks of two runs of one sketch, which
+    must have as many; raises where they do not."""
+    a, b = (_read_masks(d, "masks_final") for d in (got_dir, want_dir))
+    if len(a) != len(b) or not len(a):
+        raise AssertionError(f"sweep: {got_dir} has {len(a)} final masks, "
+                             f"the run on its own {len(b)}")
+    ious = [1.0 if not (x | y).any() else (x & y).sum() / (x | y).sum()
+            for x, y in zip(a, b)]
+    return float(min(ious))
+
+
+def phase_sweep(card: str) -> dict:
+    """The directory sweep at full width on 16 distinct 750^2 sketches,
+    ``no_intermediate`` (the JAX bench's sweep configuration): per-image
+    runs one after another (the outputs and launches each sweep must
+    equal), one warm sweep, one timed sweep per mode with exact launch
+    counts, one sweep keeping every output, one traced sweep, and the CLI
+    sharded over two hosts."""
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.build import build_pipeline
+    from inklayer_tpu_torch.io.outputs import KEEP_LIST
+    from inklayer_tpu_torch.main import main as cli_main
+    from inklayer_tpu_torch.profiling import device_profile
+
+    cfg = slice_config()
+    pipe = build_pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    sketch_dir = os.path.join(WORK, "sweep_in")
+    os.makedirs(sketch_dir, exist_ok=True)
+    paths = []
+    for i in range(SWEEP_SKETCHES):
+        paths.append(os.path.join(sketch_dir, f"sketch{i:02d}.png"))
+        draw_sketch(paths[-1], shift=i)
+    names = [os.path.basename(p)[:-4] for p in paths]
+    out = os.path.join(WORK, "sweep_out")
+
+    # what one batched detection + SAM encode launches, at 1, 2 and 4
+    # images (the batched sweep launches these once per group)
+    images = [torch.from_numpy(np.array(Image.open(p).convert("RGB"))).cuda()
+              for p in paths[:4]]
+    front = {}
+    for b in (1, 2, 4):
+        _kernels.reset_launch_counts()
+        pipe.detector.detect_batch(images[:b])
+        pipe.sam.precompute_image_states(images[:b])
+        front[b] = _delta(_kernels.launch_counts(), {})
+    del images
+
+    # the runs one after another: the outputs and launches to hold each
+    # sweep to
+    pipe.run(paths[0], os.path.join(out, "warm"), no_intermediate=True)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = [pipe.run(p, os.path.join(out, "one_by_one"), no_intermediate=True)
+           for p in paths]
+    one_by_one_s = time.perf_counter() - t0
+    per_run = _delta(_kernels.launch_counts(), {})
+    ref_files = [_tree_files(d) for d in ref]
+    log(f"  run one image after another [{card}]: {one_by_one_s * 1e3:.1f} ms "
+        f"for {len(paths)} sketches ({len(paths) / one_by_one_s:.3f} "
+        f"sketches/s); launches {per_run}")
+    pipe.run_dir(paths, os.path.join(out, "warm_sweep"), no_intermediate=True)
+
+    res = {"one_by_one_sps": len(paths) / one_by_one_s, "modes": {},
+           "launches": {}}
+    peak = 0.0
+    for label, kw in SWEEP_MODES:
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = pipe.run_dir(paths, os.path.join(out, label.split()[0]
+                                                + label.split()[1]),
+                            no_intermediate=True, **kw)
+        sec = time.perf_counter() - t0
+        counts = _delta(_kernels.launch_counts(), {})
+        b = kw.get("batch_size", 1)
+        want = dict(per_run)
+        if b > 1:  # detection and SAM's encode once per group of b images
+            _add_counts(want, front[1], -len(paths))
+            _add_counts(want, front[b], len(paths) // b)
+            want = {k: n for k, n in sorted(want.items()) if n}
+        if counts != want:
+            raise AssertionError(f"sweep {label}: launched {counts}, expected "
+                                 f"{want}")
+        if [os.path.basename(d) for d in outs] != names:
+            raise AssertionError(f"sweep {label}: output dirs {outs}")
+        for d in outs:
+            left = sorted(os.listdir(d))
+            if left != sorted(set(KEEP_LIST) & set(OUTPUTS)):
+                raise AssertionError(f"sweep {label}: {d} holds {left}")
+        if b == 1:  # the same device work as the runs on their own
+            same = [_tree_files(d) == want_f for d, want_f in zip(outs,
+                                                                  ref_files)]
+            if not all(same):
+                raise AssertionError(f"sweep {label}: outputs differ from the "
+                                     f"runs on their own: {same}")
+            agree = "every output file equal to the run's on its own"
+        else:
+            iou = min(_same_by_iou(d, r) for d, r in zip(outs, ref))
+            if iou < 0.99:
+                raise AssertionError(f"sweep {label}: final-mask IoU {iou}")
+            agree = f"final masks IoU >= {iou:.4f} against the runs"
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak = max(peak, mem)
+        sps = len(paths) / sec
+        res["modes"][label] = {"sketches_per_s": sps, "ms": sec * 1e3,
+                               "peak_gib": mem}
+        _add_counts(res["launches"], counts)
+        log(f"  sweep {label} [{card}]: {sec * 1e3:.1f} ms for {len(paths)} "
+            f"sketches, {sps:.3f} sketches/s; stage sums " + ", ".join(
+                f"{k} {v * 1e3:.1f}" for k, v in pipe.stage_times.items())
+            + f" ms; peak memory allocated {mem:.2f} GiB; launches exact; "
+            + agree)
+
+    # every output kept, on 4 sketches
+    outs = pipe.run_dir(paths[:4], os.path.join(out, "full"))
+    for d in outs:
+        if sorted(os.listdir(d)) != sorted(OUTPUTS):
+            raise AssertionError(f"sweep with intermediates: {d} holds "
+                                 f"{sorted(os.listdir(d))}")
+    log(f"  sweep keeping every output: all {len(OUTPUTS)} items in each of "
+        f"{len(outs)} sketches")
+    # one traced sweep of 4 sketches in the default mode
+    prof = device_profile(lambda: (pipe.run_dir(
+        paths[:4], os.path.join(out, "traced"), no_intermediate=True),
+        torch.cuda.synchronize()))
+    res["idle_share"] = prof["idle_share"]
+    log(f"  traced sweep (4 sketches, workers {cfg.sweep_workers}) [{card}]: "
+        f"wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+        f"ms, idle share {prof['idle_share']:.3f}")
+    res["peak_gib"] = peak
+    log(f"  sweep peak memory allocated {peak:.2f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # the CLI: --dir of 4 sketches, batched, host 1 of 2 takes 1 and 3
+    shard_in = os.path.join(WORK, "sweep_cli_in")
+    os.makedirs(shard_in, exist_ok=True)
+    for p in paths[:4]:
+        shutil.copy(p, shard_in)
+    cli_out = os.path.join(WORK, "sweep_cli_out")
+    t0 = time.perf_counter()
+    cli_main(["--dir", shard_in, "--out_dir", cli_out, "--batch", "2",
+              "--num_hosts", "2", "--host_id", "1", "--no_intermediate"])
+    if sorted(os.listdir(cli_out)) != [names[1], names[3]]:
+        raise AssertionError(f"main --num_hosts 2 --host_id 1 wrote "
+                             f"{sorted(os.listdir(cli_out))}")
+    log(f"  main --dir --batch 2 --num_hosts 2 --host_id 1: "
+        f"{time.perf_counter() - t0:.1f} s (build included), wrote "
+        f"{sorted(os.listdir(cli_out))}")
+    return res
+
+
+def conv_entry(card: str) -> dict:
+    """KC's entry point, ``scripts/torch_conv_ab.py``, at the four levels
+    (batch 2): every level checked and timed; returns the launches."""
+    from inklayer_tpu_torch import _kernels
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_conv_ab
+
+    _kernels.reset_launch_counts()
+    rows = torch_conv_ab.run([0, 1, 2, 3], batch=2, reps=5)
+    counts = _kernels.launch_counts()
+    log(f"  scripts/torch_conv_ab.py [{card}]: {len(rows)} levels; launches "
+        f"{_delta(counts, {})}")
+    if not counts["conv3x3"]:
+        raise AssertionError("torch_conv_ab: conv3x3 never launched")
+    return counts
 
 
 def ptxas_entries(log_text: str) -> dict:
@@ -1715,6 +1988,16 @@ def main() -> int:
     serve_res = phase_serving(card)
     log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 7: the directory sweep [{card}]")
+    t0 = time.perf_counter()
+    sweep_res = phase_sweep(card)
+    log(f"  phase 7: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 8: the convolution's entry point [{card}]")
+    t0 = time.perf_counter()
+    conv_counts = conv_entry(card)
+    log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -1722,13 +2005,16 @@ def main() -> int:
         worst = max(cases, key=lambda c: c["bound_ms"])
         line["kernels"].append({
             # ms, plain_ms, bound_ms, library_ms: sums over the phase-2
-            # cases; launches: the last timed runs of phases 3 and 5 and
-            # the serving run of phase 6
+            # cases; launches: the last timed runs of phases 3 and 5, the
+            # serving run of phase 6, the timed sweeps of phase 7 and the
+            # convolution's entry point (phase 8)
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
             + inpaint_res["bucket2"]["counts"].get(name, 0)
-            + serve_res["launches"].get(name, 0),
+            + serve_res["launches"].get(name, 0)
+            + sweep_res["launches"].get(name, 0)
+            + conv_counts.get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

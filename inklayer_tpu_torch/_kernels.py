@@ -55,7 +55,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
 KERNEL_NAMES = ("relpos_attention", "mlp_gelu", "layernorm", "ms_deform_attn",
-                "clean_components", "connected_components", "flash_attention")
+                "clean_components", "connected_components", "flash_attention",
+                "conv3x3")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _lib = None
@@ -84,6 +85,8 @@ _ARGS = {
     "ik_clean_components": "PPPPiiiifP",
     # (q, k, v, out, BH, N, D, scale, stream)
     "ik_flash_attention": "PPPPiiifP",
+    # (x, w, out, B, H, W, C, Cout, stream)
+    "ik_conv3x3": "PPPiiiiiP",
 }
 # queries off the launch path: name -> (argtypes, restype)
 _QUERIES = {

@@ -6,7 +6,8 @@ same field names and defaults, so a JSON file written by the JAX package's
 ``save_config`` loads here too.  Sections of stages that are not ported
 yet (parallel) and top-level options the port does not read (among them
 ``inpaint``, which neither package reads: the CLI flag decides) are
-ignored on load.
+ignored on load.  An option that would change what the port computes and
+that it does not have raises instead: ``device_front: true``.
 """
 
 from __future__ import annotations
@@ -194,12 +195,24 @@ class PipelineConfig:
     depth: DepthConfig = field(default_factory=DepthConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     refine: RefineConfig = field(default_factory=RefineConfig)
+    # run_dir worker threads, each on its own CUDA stream.  The JAX package
+    # defaults to 4, measured on its TPU transport.  On the H100 more
+    # workers lose (chip_smoke.py phase 7; PERF.md section 5): the refine
+    # stage's eager loops share one interpreter lock.  So the port runs
+    # one (ROADMAP section 3).
+    sweep_workers: int = 1
 
 
 def _from_jsonable(cls: type, data: dict) -> Any:
     """Rebuild a dataclass from ``json.load`` output: nested sections
     recurse, lists become tuples, unknown keys are ignored."""
     kwargs = {}
+    if cls is PipelineConfig and data.get("device_front"):
+        # refused, not run without it: the port has no device NMS front
+        raise NotImplementedError(
+            f"config device_front={data['device_front']!r}: the device NMS "
+            f"front (front.py:127) is not ported (ROADMAP.md section 1, "
+            f"item 6)")
     types = {f.name: f.type for f in dataclasses.fields(cls)}
     for name, value in data.items():
         if name not in types:

@@ -74,8 +74,10 @@ class ControlNetInpaintPipeline:
         self.stage_times: dict = {}
 
     def _sync(self) -> float:
+        # the calling thread's stream, not the whole device: work that
+        # other threads queued on their own streams need not finish
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         return time.perf_counter()
 
     def _add_time(self, key: str, t0: float) -> float:

@@ -179,6 +179,46 @@ class GDinoDetector:
 
         return finalize, scores[0], top_boxes[0]
 
+    @torch.inference_mode()
+    def detect_batch(self, images, caption: Optional[str] = None,
+                     box_threshold: Optional[float] = None) -> list:
+        """Batched detection for directory sweeps: the (H, W, 3) uint8
+        images are grouped by shape bucket and each group runs as ONE
+        forward, with each image's own pad mask and the caption's tokens
+        broadcast.  Returns :meth:`detect`-style dicts in input order."""
+        c = self.cfg
+        cap = self._caption(caption)
+        thresh = c.box_threshold if box_threshold is None else box_threshold
+        ids, attn, pos = self._tokenize(cap)
+        token_ids = ids[0].cpu().numpy()
+        groups: dict = {}
+        prepped = []
+        for i, image in enumerate(images):
+            bucket, pre, pad = self._preprocess(image)
+            prepped.append((pre, pad))
+            groups.setdefault(bucket, []).append(i)
+        results = [None] * len(images)
+        for idxs in groups.values():
+            b = len(idxs)
+
+            def tile(t):
+                return t.expand(b, *t.shape[1:]).contiguous()
+
+            logits, boxes = self.model(
+                torch.stack([prepped[i][0] for i in idxs]),
+                torch.stack([prepped[i][1] for i in idxs]), tile(ids),
+                tile(attn), tile(pos))
+            scores, top_boxes, tok_probs = top_detections(logits, boxes,
+                                                          c.max_boxes)
+            scores = scores.float().cpu().numpy()
+            top_boxes = top_boxes.double().cpu().numpy()
+            tok_probs = tok_probs.float().cpu().numpy()
+            for j, i in enumerate(idxs):
+                results[i] = self._threshold(scores[j], top_boxes[j],
+                                             tok_probs[j], token_ids, cap,
+                                             thresh)
+        return results
+
     def detect(self, image: torch.Tensor, caption: Optional[str] = None,
                box_threshold: Optional[float] = None) -> dict:
         """(H, W, 3) uint8 image tensor -> dict with normalised cxcywh

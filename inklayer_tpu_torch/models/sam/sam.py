@@ -4,7 +4,9 @@
 The predictor keeps the JAX package's state API, which the runner uses:
 ``compute_image_state`` (preprocess + ViT encode), ``decode_lowres_state``
 (box prompts -> 256^2 low-res logits) and ``masks_from_lowres`` (upsample,
-crop, resize to the input size, threshold).  Resampling uses the
+crop, resize to the input size, threshold); for the batched sweep
+``precompute_image_states`` (one encode of several images) and
+``predict_device_state`` (host pixel boxes -> masks).  Resampling uses the
 jax.image-exact weight matrices of :mod:`inklayer_tpu_torch.ops.image`.
 """
 
@@ -107,6 +109,47 @@ class SamPredictor:
         return {"embedding": emb, **meta}
 
     @torch.inference_mode()
+    def precompute_image_states(self, images) -> list:
+        """ONE batched ViT encode of several (H, W, 3) uint8 images on the
+        model's device; returns one state per image, as
+        :meth:`compute_image_state` does for one."""
+        pres, metas = [], []
+        for image in images:
+            pre, meta = self._preprocess_meta(image)
+            pres.append(pre)
+            metas.append(meta)
+        embs = self.model.encode(torch.stack(pres))
+        return [{"embedding": embs[i: i + 1], **metas[i]}
+                for i in range(len(images))]
+
+    @torch.inference_mode()
+    def predict_device_state(self, state: dict, boxes_xyxy):
+        """(N, 4) xyxy boxes in input pixels (host) -> ((N, H, W) bool masks
+        on the device, (N,) host iou).  The prompts are padded to
+        ``box_capacity``, doubled until they fit, so the decoder sees the
+        shapes of the chained path."""
+        n = boxes_xyxy.shape[0]
+        cap = self.box_capacity
+        while cap < n:
+            cap *= 2
+        padded = np.zeros((cap, 4), np.float32)
+        padded[:n] = (np.asarray(boxes_xyxy, np.float32)
+                      * np.tile(state["scale"], 2))
+        logits, iou = self.model.decode_boxes(
+            state["embedding"], torch.from_numpy(padded).to(self.device))
+        full = self._postprocess_device_state(state, logits[:n, 0])
+        return (full > self.cfg.mask_threshold,
+                iou[:n, 0].float().cpu().numpy())
+
+    def _postprocess_device_state(self, state: dict, low_res_logits):
+        """(n, 4G, 4G) logits -> (n, H, W) fp32 logits: upsample to the
+        model size, crop the valid region, resize to the input size."""
+        size = self.cfg.image_size
+        ih, iw = state["input_hw"]
+        up = resize_batch(low_res_logits.float(), (size, size))
+        return resize_batch(up[:, :ih, :iw].contiguous(), state["orig_hw"])
+
+    @torch.inference_mode()
     def decode_lowres_state(self, state: dict, boxes_model: torch.Tensor):
         """(cap, 4) boxes in model space -> ((cap, 4G, 4G) low-res logits,
         (cap,) iou)."""
@@ -124,8 +167,5 @@ class SamPredictor:
         while b < n:
             b *= 2
         b = min(b, cap)
-        size = self.cfg.image_size
-        ih, iw = state["input_hw"]
-        up = resize_batch(lowres[:b].float(), (size, size))
-        full = resize_batch(up[:, :ih, :iw].contiguous(), state["orig_hw"])
+        full = self._postprocess_device_state(state, lowres[:b])
         return (full > self.cfg.mask_threshold)[:n]

@@ -10,15 +10,17 @@ with TF32 off.  Tolerance atol = rtol = 2e-2 (bf16 outputs; the attention
 rounds its probabilities and the MLP its hidden activation to bf16), and
 for the attention and GEMM kernels a relative L2 error <= 5e-3.  The
 connected-components kernels are exact: labels and cleaned masks equal
-their plain versions bit for bit.
+their plain versions bit for bit.  The 3x3 convolution sums up to
+9 * 1280 products in fp32 before one bf16 rounding, so it is held to a
+relative L2 error <= 5e-3 and element-wise to 1e-2 / 1e-2.
 """
 
 import pytest
 import torch
 
 from inklayer_tpu_torch import _kernels
-from inklayer_tpu_torch.ops import (attention, components, deformable, mlp,
-                                    norm)
+from inklayer_tpu_torch.ops import (attention, components, conv, deformable,
+                                    mlp, norm)
 from torch_masks import MASK_KINDS, adversarial_mask, straddle_stack
 
 pytestmark = pytest.mark.gpu
@@ -424,3 +426,87 @@ def test_ms_deform_attn_cases(gen, n_levels, n_points, lq, b, dtype, kind):
     torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=2e-2)
     if kind == "outside":
         assert not got.any()
+
+
+# ---------------------------------------------------------------------------
+# multi-scale deformable attention at GroundingDINO's batch of 2 and 4
+# images (the batched sweep): the 800^2 bucket's levels, 4 x 4 points
+# ---------------------------------------------------------------------------
+
+GDINO_LEVELS = ((100, 100), (50, 50), (25, 25), (13, 13))
+
+
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("lq", [13294, 900])
+def test_ms_deform_attn_gdino_batch(gen, b, lq):
+    """The encoder's raster queries (Lq 13294, K5t) and the decoder's 900
+    (K5f) of b images in one launch."""
+    s = sum(h * w for h, w in GDINO_LEVELS)
+    value = _randn(gen, b, s, 8, 32)
+    loc = (torch.rand(b, lq, 8, 4, 4, 2, generator=gen, device="cuda")
+           * 1.2 - 0.1)
+    att = torch.softmax(torch.randn(b, lq, 8, 16, generator=gen,
+                                    device="cuda"), -1).reshape(b, lq, 8, 4, 4)
+    before = _kernels.LAUNCHES["ms_deform_attn"]
+    got = deformable.ms_deform_attn(value, GDINO_LEVELS, loc, att)
+    assert _kernels.LAUNCHES["ms_deform_attn"] == before + 1
+    want = deformable.ms_deform_attn_plain(value.float(), GDINO_LEVELS, loc,
+                                           att)
+    assert got.shape == (b, lq, 256)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the 3x3 NHWC convolution (scripts/ablate_pallas_conv.py's levels at batch
+# 2, and edge cases: Cout != C, C and Cout not multiples of the 32-deep
+# slab or the 128-wide tile, a pixel count off the 128-row tile, 1-pixel
+# images)
+# ---------------------------------------------------------------------------
+
+CONV_LEVELS = [(2, 96, 96, 320, 320), (2, 48, 48, 640, 640),
+               (2, 24, 24, 1280, 1280), (2, 12, 12, 1280, 1280)]
+
+
+@pytest.mark.parametrize("b,h,w,c,cout", CONV_LEVELS + [
+    (1, 10, 14, 48, 64), (2, 12, 12, 32, 32), (3, 7, 5, 8, 136),
+    (1, 1, 1, 16, 8), (1, 1, 9, 24, 40), (2, 33, 17, 72, 200)])
+def test_conv3x3_kernel(gen, b, h, w, c, cout):
+    x = _randn(gen, b, h, w, c)
+    wt = _randn(gen, 3, 3, c, cout, std=(9 * c) ** -0.5)
+    before = _kernels.LAUNCHES["conv3x3"]
+    got = conv.conv3x3_nhwc(x, wt)
+    assert _kernels.LAUNCHES["conv3x3"] == before + 1
+    assert got.shape == (b, h, w, cout) and got.dtype == torch.bfloat16
+    want = conv.conv3x3_nhwc_plain(x.float(), wt.float())
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+    assert _rel_l2(got, want) <= 5e-3
+
+
+def test_conv3x3_matches_cudnn(gen):
+    """The same function as F.conv2d on the NCHW views (TF32 off)."""
+    x = _randn(gen, 2, 24, 20, 64)
+    wt = _randn(gen, 3, 3, 64, 48, std=(9 * 64) ** -0.5)
+    got = conv.conv3x3_nhwc(x, wt)
+    want = torch.nn.functional.conv2d(
+        x.float().permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+    assert _rel_l2(got, want) <= 5e-3
+
+
+def test_conv3x3_refuses_what_the_kernel_does_not_take(gen):
+    x = _randn(gen, 1, 8, 8, 16)
+    wt = _randn(gen, 3, 3, 16, 16)
+    with pytest.raises(TypeError):
+        conv.conv3x3_nhwc(x.float(), wt.float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv.conv3x3_nhwc(_randn(gen, 1, 8, 8, 12), _randn(gen, 3, 3, 12, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.conv3x3_nhwc(x.transpose(1, 2), wt)
+    with pytest.raises(ValueError, match=r"\(3, 3, C, Cout\)"):
+        conv.conv3x3_nhwc(x, _randn(gen, 1, 1, 16, 16))
+    with pytest.raises(ValueError, match="mixed devices"):
+        conv.conv3x3_nhwc(x, wt.cpu())
+    buf = _randn(gen, 1 + 8 * 8 * 16)
+    with pytest.raises(ValueError, match="aligned"):
+        conv.conv3x3_nhwc(buf[1:].view(1, 8, 8, 16), wt)
