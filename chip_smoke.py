@@ -7,8 +7,8 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. build   — compile the hand-written kernels (csrc/*.cu, one nvcc per
              source, all started together, sm_90a, ``-Xptxas -v``) and
-             print each attention and GEMM instance's registers, spills and
-             shared memory;
+             print each attention, GEMM and convolution instance's
+             registers, spills and shared memory;
 2. kernels — each kernel against its plain PyTorch version at the shapes
              of the default run and of the inpainting path, inputs seeded
              random bf16 with the plain version in fp32 on the card (TF32
@@ -90,13 +90,15 @@ Phases, each of which raises on failure (exit code != 0):
              peak memory; then ``main --dir --batch 2 --num_hosts 2
              --host_id 1`` on 4 sketches must write sketches 1 and 3;
 8. conv    — the 3x3 NHWC convolution's entry point,
-             ``scripts/torch_conv_ab.py``, at its four levels.
+             ``scripts/torch_conv_ab.py``, at its four levels (checked,
+             timed beside cuDNN, its TMA bytes per call).
 
 Phase 2 also holds the SAM encoder's kernels (relpos attention, MLP,
 LayerNorm) at the SAM batch of 2 and 4 images that the micro-batched
 encoder launches, multi-scale deformable attention at GroundingDINO's
 batch of 2 and 4 images (the batched sweep), and the 3x3 convolution at
-the four levels of the TPU prototype ``scripts/ablate_pallas_conv.py``.
+the four levels of the TPU prototype ``scripts/ablate_pallas_conv.py``,
+each level's line naming ``ops/conv.py conv_config``'s choice.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
@@ -636,9 +638,13 @@ def phase_kernels(results: dict) -> None:
     # OIHW weights.  Bound: 2 B H W 9 C Cout on the tensor cores; bytes:
     # x, w and the output once.
     sys.path.insert(0, os.path.join(REPO, "scripts"))
-    from torch_conv_ab import LEVELS as CONV_LEVELS, conv_bound
+    from torch_conv_ab import LEVELS as CONV_LEVELS, config_text, conv_bound
+
+    from inklayer_tpu_torch import _kernels
 
     for li, (h, w, c) in enumerate(CONV_LEVELS):
+        log(f"  conv3x3 level {li}: " + config_text(
+            conv.conv_config(2, h, w, c, c, _kernels.sm_count(0))))
         x = randn(2, h, w, c)
         wt = randn(3, 3, c, c, std=0.02)
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0,
@@ -1889,10 +1895,11 @@ def ptxas_entries(log_text: str) -> dict:
     return out
 
 
-def kernel_resources() -> None:
-    """Registers, spills and shared memory of each attention and GEMM
-    instance (the ptxas messages of this build, and the dynamic shared
-    memory the launch asks for), and the LayerNorm instances' range."""
+def kernel_resources(sources=None) -> None:
+    """Registers, spills and shared memory of each attention, GEMM and
+    convolution instance (the ptxas messages of this build, and the
+    dynamic shared memory the launch asks for), and the LayerNorm
+    instances' range; ``sources`` limits it to those source files."""
     import re
 
     from inklayer_tpu_torch import _kernels
@@ -1903,13 +1910,21 @@ def kernel_resources() -> None:
     lib = _kernels.lib()
     ln = []
     for src, text in sorted(_kernels.build_log.items()):
+        if sources is not None and src not in sources:
+            continue
         for name, info in ptxas_entries(text).items():
             m = re.search(r"attention_tile_kernelILi(\d+)ELb([01])E", name)
             g = re.search(r"gemm_bias_act_kernelILi(\d+)ELb([01])E", name)
+            cv = re.search(r"conv3x3_kernelILi(\d+)EE", name)
             if "layernorm_kernel" in name:
                 ln.append(info)
                 continue
-            if m:
+            if cv:
+                label = f"conv3x3_kernel<{cv.group(1)}>"
+                dyn = lib.ik_conv_smem_bytes(int(cv.group(1)))
+            elif "conv3x3_reduce_kernel" in name:
+                label, dyn = "conv3x3_reduce_kernel", 0
+            elif m:
                 d, rel = int(m.group(1)), int(m.group(2))
                 label = (f"attention_tile_kernel<{d}, "
                          f"{'true' if rel else 'false'}>")

@@ -85,8 +85,9 @@ _ARGS = {
     "ik_clean_components": "PPPPiiiifP",
     # (q, k, v, out, BH, N, D, scale, stream)
     "ik_flash_attention": "PPPPiiifP",
-    # (x, w, out, B, H, W, C, Cout, stream)
-    "ik_conv3x3": "PPPiiiiiP",
+    # (x, w, out, partial, B, H, W, C, Cout, bh, bw, bn, splits, full, grid,
+    #  stream)
+    "ik_conv3x3": "PPPPiiiiiiiiiiiP",
 }
 # queries off the launch path: name -> (argtypes, restype)
 _QUERIES = {
@@ -94,6 +95,8 @@ _QUERIES = {
     "ik_attention_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
     # (bn) -> dynamic shared memory bytes of that GEMM instance
     "ik_gemm_smem_bytes": ([ctypes.c_int], ctypes.c_int),
+    # (bn) -> dynamic shared memory bytes of that convolution instance
+    "ik_conv_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "ik_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

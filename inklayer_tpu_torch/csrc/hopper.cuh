@@ -1,15 +1,18 @@
 // PTX wrappers for Hopper (sm_90a) shared by the kernels built on TMA and
-// wgmma: the attention tile loop (attention_tile.cuh) and the GEMM of
-// linear_bias_act.cu.
+// wgmma: the attention tile loop (attention_tile.cuh), the GEMM of
+// linear_bias_act.cu and the convolution of conv3x3.cu.
 //
+// * a transpose of bf16 pairs inside a quad of lanes, for 16-byte stores
+//   of wgmma accumulators;
 // * mbarriers: init, arrive, arrive with an expected transaction count,
-//   wait on a phase parity;
-// * TMA: 2-D and 3-D tiled loads into shared memory that complete on an
+//   wait on a phase parity (or trap after seconds);
+// * TMA: 2-, 3- and 4-D tiled loads into shared memory that complete on an
 //   mbarrier; cuTensorMapEncodeTiled looked up through the CUDA runtime
 //   (no -lcuda);
 // * wgmma: fence / commit / wait, shared-memory descriptors for the 32- and
-//   128-byte swizzles, and the SS form (A and B K-major in shared memory,
-//   fp32 accumulators) at N = 128, 160 and 256.
+//   128-byte swizzles (K-major and, for 128 bytes, MN-major B), and the SS
+//   form (A and B in shared memory, fp32 accumulators): B K-major at
+//   N = 128, 160 and 256, B MN-major at N = 64, 128, 192 and 256.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums
@@ -27,6 +30,24 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Lane q of a quad holds a[i] = columns (2q, 2q + 1) of 8-column groups
+// g0 + i, i = 0..3; afterwards a[i] = columns (2i, 2i + 1) of group g0 + q.
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int q) {
+  const bool odd = q & 1, hi = q & 2;
+  uint32_t s = odd ? a[0] : a[1];  // exchange with lane q ^ 1
+  s = __shfl_xor_sync(0xffffffffu, s, 1);
+  if (odd) a[0] = s; else a[1] = s;
+  s = odd ? a[2] : a[3];
+  s = __shfl_xor_sync(0xffffffffu, s, 1);
+  if (odd) a[2] = s; else a[3] = s;
+  s = hi ? a[0] : a[2];  // exchange with lane q ^ 2
+  s = __shfl_xor_sync(0xffffffffu, s, 2);
+  if (hi) a[0] = s; else a[2] = s;
+  s = hi ? a[1] : a[3];
+  s = __shfl_xor_sync(0xffffffffu, s, 2);
+  if (hi) a[1] = s; else a[3] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -56,18 +77,36 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// true once the barrier's phase of the given parity has completed (the
+// hardware may hold the thread a while before it answers false)
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // wait for the completion of the barrier's phase of the given parity
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// mbar_wait that ends the launch with an error (trap) when the phase has
+// not completed after ~2^32 clocks (seconds), so that a transaction count
+// that never arrives fails the call instead of hanging the card; the clock
+// is read only once the first try has failed
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
+                                                  uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) asm volatile("trap;");
 }
 
 // ---------------------------------------------------------------------------
@@ -91,6 +130,24 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r), "r"(z)
+      : "memory");
+}
+
+// the box at (c0, c1, c2, c3), innermost first, of a 4-D tensor map.  In
+// tiled mode the coordinates are signed: the elements of the box that lie
+// outside the tensor (before 0 or past the extent, on any axis) are written
+// as zeros, and the whole box still counts in the barrier's transaction
+// bytes.  With the 128-byte swizzle and a 128-byte inner extent, a box of
+// (64 bf16, e1, e2, 1) lands as e1 * e2 rows of 128 bytes, e1 fastest: the
+// K-major tile that desc_b128 describes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -137,6 +194,21 @@ __device__ __forceinline__ uint64_t desc_b32(uint32_t addr, uint32_t lbo,
 // aligned; a k-step of 16 columns inside the row advances addr by 32 bytes.
 __device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// shared-memory descriptor for an MN-major B tile written by TMA with the
+// 128-byte swizzle (layout type 1): boxes of 64 columns (128 bytes) x 64
+// K rows, one after another.  A core block is 8 K rows of 128 bytes, 1024
+// bytes: sbo = 1024 steps to the next 8 K rows; lbo steps to the next 64
+// columns, the next box (64 x 128 = 8192 bytes).  Where a K-major
+// descriptor's lbo is unused, an MN-major one's carries the MN step: the
+// same roles as desc_b32's MN-major form.  Tiles 1024-byte aligned; a
+// k-step of 16 rows advances addr by 16 x 128 = 2048 bytes, a whole number
+// of core blocks, so the swizzle phase stays 0.
+__device__ __forceinline__ uint64_t desc_b128_mn(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -244,6 +316,143 @@ __device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da,
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
       "}, "
       "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] B[16 x N] with B MN-major (the transpose flag set):
+// bf16 in, fp32 accumulators
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d);
+
+// d (+)= A[64 x 16] B[16 x 64]: A K-major, B MN-major in shared memory;
+// scale_d = 0 overwrites d
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] B[16 x 128]: A K-major, B MN-major in shared memory;
+// scale_d = 0 overwrites d
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] B[16 x 192]: A K-major, B MN-major in shared memory;
+// scale_d = 0 overwrites d
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<192>(float (&d)[96], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "%96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] B[16 x 256]: A K-major, B MN-major in shared memory;
+// scale_d = 0 overwrites d
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<256>(float (&d)[128], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),

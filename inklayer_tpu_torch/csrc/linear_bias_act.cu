@@ -72,24 +72,6 @@ struct GemmSmem {
   static constexpr uint32_t alloc = bytes + 1024;  // room to align the base
 };
 
-// Lane q of a quad holds a[i] = columns (2q, 2q + 1) of 8-column groups
-// g0 + i, i = 0..3; afterwards a[i] = columns (2i, 2i + 1) of group g0 + q.
-__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int q) {
-  const bool odd = q & 1, hi = q & 2;
-  uint32_t s = odd ? a[0] : a[1];  // exchange with lane q ^ 1
-  s = __shfl_xor_sync(0xffffffffu, s, 1);
-  if (odd) a[0] = s; else a[1] = s;
-  s = odd ? a[2] : a[3];
-  s = __shfl_xor_sync(0xffffffffu, s, 1);
-  if (odd) a[2] = s; else a[3] = s;
-  s = hi ? a[0] : a[2];  // exchange with lane q ^ 2
-  s = __shfl_xor_sync(0xffffffffu, s, 2);
-  if (hi) a[0] = s; else a[2] = s;
-  s = hi ? a[1] : a[3];
-  s = __shfl_xor_sync(0xffffffffu, s, 2);
-  if (hi) a[1] = s; else a[3] = s;
-}
-
 // Accumulator fragment of wgmma m64nBN (f32), per thread of a warpgroup:
 // warp w, lane l hold rows 16w + l/4 ("row 0") and 16w + l/4 + 8 ("row 1");
 // for each 8-column group g, d[4g + e] is (row 0, 8g + 2(l%4) + e) and

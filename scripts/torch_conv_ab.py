@@ -19,8 +19,15 @@ prints the median time per call of ``--reps`` calls (CUDA events around
 each call), the device time per call (10 calls captured in a CUDA graph
 and replayed), the bound, max(2 B H W 9 C Cout / 989 TFLOP/s, bytes /
 3.35 TB/s) with x, w and the output moved once, and each one's share of
-that bound.  The card's name and power limit come first; a JSON object
-of every number comes last.  Needs a CUDA card and nvcc.
+that bound.  Each level's line names the launch configuration
+``ops/conv.py conv_config`` chose (patch, tile width, whole and split
+tiles, units, grid) and the bytes its TMA loads bring through L2 into
+shared memory per call (:func:`tma_bytes`: every tap re-reads its image
+box, every M tile its weight boxes), with their rate at the device time.
+The card's name and power limit come first, then the kernel instances'
+registers, spills and shared memory (where this process built the
+library); a JSON object of every number comes last.  Needs a CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -45,6 +52,31 @@ def conv_bound(b: int, h: int, w: int, c: int, cout: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def config_text(cfg) -> str:
+    """One line of a conv_config choice."""
+    split = (f", the last {cfg.tail} in {cfg.splits} splits"
+             if cfg.tail else "")
+    return (f"patch {cfg.bh} x {cfg.bw}, BN {cfg.bn}: "
+            f"{cfg.m_tiles * cfg.n_tiles} tiles of 128 x {cfg.bn}, "
+            f"{cfg.full} whole{split}; {cfg.units} units on a grid of "
+            f"{cfg.grid}")
+
+
+def tma_bytes(cfg, cout: int) -> int:
+    """Bytes the kernel's TMA loads move into shared memory per call under
+    ``cfg`` (``ops/conv.py`` ConvConfig): per slab of a unit two image
+    boxes of bh * bw rows of 128 bytes and the weight boxes of 64 x 64
+    that hold a column below Cout."""
+    from inklayer_tpu_torch.ops import conv
+
+    total = 0
+    for u in range(cfg.units):
+        _, nt, _, k0, k1 = conv.unit_work(cfg, u)
+        boxes = min(cfg.bn // 64, -(-(cout - nt * cfg.bn) // 64))
+        total += (k1 - k0) * (2 * cfg.bh * cfg.bw * 128 + boxes * 8192)
+    return total
+
+
 def run(levels, batch: int = 2, reps: int = 20) -> list:
     """Check and time each level; returns one dict per level."""
     import torch
@@ -52,6 +84,7 @@ def run(levels, batch: int = 2, reps: int = 20) -> list:
 
     sys.path.insert(0, REPO)
     import chip_smoke
+    from inklayer_tpu_torch import _kernels
     from inklayer_tpu_torch.ops import conv
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -73,7 +106,9 @@ def run(levels, batch: int = 2, reps: int = 20) -> list:
                  "plain": lambda: conv.conv3x3_nhwc_plain(x, wt),
                  "cudnn": lambda: F.conv2d(x_nchw, w_oihw, padding=1)}
         bnd = conv_bound(batch, h, w, c, c)
+        cfg = conv.conv_config(batch, h, w, c, c, _kernels.sm_count(0))
         row = {"level": li, "shape": [batch, h, w, c, c],
+               "config": cfg._asdict(), "tma_bytes": tma_bytes(cfg, c),
                "max_abs_err": err, "rel_l2": rel, "bound_ms": bnd[0],
                "bound_by": bnd[1]}
         for name, fn in calls.items():
@@ -82,7 +117,12 @@ def run(levels, batch: int = 2, reps: int = 20) -> list:
         rows.append(row)
         print(f"  level {li} ({batch}, {h}, {w}, {c}) -> {c}: max_abs_err "
               f"{err:.3e}, rel_l2 {rel:.3e}; bound {bnd[0]:.4f} ms "
-              f"({bnd[1]})", flush=True)
+              f"({bnd[1]}); {config_text(cfg)}", flush=True)
+        if row["kernel_device_ms"] is not None:
+            rate = row["tma_bytes"] / row["kernel_device_ms"] / 1e9
+            print(f"    kernel TMA loads {row['tma_bytes'] / 1e6:.1f} MB per "
+                  f"call, {rate:.2f} TB/s through L2 at its device time",
+                  flush=True)
         for name in calls:
             ms, dev = row[f"{name}_ms"], row[f"{name}_device_ms"]
             print(f"    {name:6s} {ms:8.4f} ms per call ({bnd[0] / ms:.3f} of "
@@ -106,8 +146,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     import chip_smoke
 
+    from inklayer_tpu_torch import _kernels
+
     card = chip_smoke.card_line()
     print(card, flush=True)
+    _kernels.build(verbose=True)
+    chip_smoke.kernel_resources({"conv3x3.cu"})
     rows = run([int(s) for s in args.levels.split(",")], args.batch,
                args.reps)
     print(json.dumps({"card": card, "levels": rows}))

@@ -458,9 +458,10 @@ def test_ms_deform_attn_gdino_batch(gen, b, lq):
 
 # ---------------------------------------------------------------------------
 # the 3x3 NHWC convolution (scripts/ablate_pallas_conv.py's levels at batch
-# 2, and edge cases: Cout != C, C and Cout not multiples of the 32-deep
-# slab or the 128-wide tile, a pixel count off the 128-row tile, 1-pixel
-# images)
+# 2, and edge cases: Cout != C, C and Cout not multiples of the 64-channel
+# slab or the 64-column weight box, patches past the image's bottom and
+# right edges, a tile with one patch, split tails, 1-pixel images; which
+# case reaches which is held on the CPU, tests/test_torch_conv.py)
 # ---------------------------------------------------------------------------
 
 CONV_LEVELS = [(2, 96, 96, 320, 320), (2, 48, 48, 640, 640),
@@ -469,7 +470,8 @@ CONV_LEVELS = [(2, 96, 96, 320, 320), (2, 48, 48, 640, 640),
 
 @pytest.mark.parametrize("b,h,w,c,cout", CONV_LEVELS + [
     (1, 10, 14, 48, 64), (2, 12, 12, 32, 32), (3, 7, 5, 8, 136),
-    (1, 1, 1, 16, 8), (1, 1, 9, 24, 40), (2, 33, 17, 72, 200)])
+    (1, 1, 1, 16, 8), (1, 1, 9, 24, 40), (2, 33, 17, 72, 200),
+    (3, 23, 22, 64, 96), (2, 20, 18, 200, 136), (1, 9, 9, 136, 72)])
 def test_conv3x3_kernel(gen, b, h, w, c, cout):
     x = _randn(gen, b, h, w, c)
     wt = _randn(gen, 3, 3, c, cout, std=(9 * c) ** -0.5)
@@ -486,6 +488,34 @@ def test_conv3x3_matches_cudnn(gen):
     """The same function as F.conv2d on the NCHW views (TF32 off)."""
     x = _randn(gen, 2, 24, 20, 64)
     wt = _randn(gen, 3, 3, 64, 48, std=(9 * 64) ** -0.5)
+    got = conv.conv3x3_nhwc(x, wt)
+    want = torch.nn.functional.conv2d(
+        x.float().permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+    assert _rel_l2(got, want) <= 5e-3
+
+
+@pytest.mark.parametrize("level", [0, 2, 3])
+def test_conv3x3_split_is_bit_identical(gen, level):
+    """Levels whose tail tiles are split (level 0: 24 of 288 tiles;
+    levels 2 and 3: all): two calls give the same bits, the partials
+    being added in split order."""
+    b, h, w, c, cout = CONV_LEVELS[level]
+    assert conv.conv_config(b, h, w, c, cout,
+                            _kernels.sm_count(0)).splits > 1
+    x = _randn(gen, b, h, w, c)
+    wt = _randn(gen, 3, 3, c, cout, std=(9 * c) ** -0.5)
+    first = conv.conv3x3_nhwc(x, wt)
+    assert torch.equal(first, conv.conv3x3_nhwc(x, wt))
+
+
+def test_conv3x3_level3_matches_cudnn(gen):
+    """Level 3 (6 splits of each tile's K) against F.conv2d in fp32 with
+    TF32 off."""
+    b, h, w, c, cout = CONV_LEVELS[3]
+    x = _randn(gen, b, h, w, c)
+    wt = _randn(gen, 3, 3, c, cout, std=(9 * c) ** -0.5)
     got = conv.conv3x3_nhwc(x, wt)
     want = torch.nn.functional.conv2d(
         x.float().permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1),
