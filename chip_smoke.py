@@ -45,7 +45,11 @@ Phases, each of which raises on failure (exit code != 0):
              one fixed mask stack cleaned and refined on the card and on
              the CPU (cleaned masks identical, final masks IoU >= 0.99);
              the CLIP text encoder, one UNet + ControlNet step and one VAE
-             encode + decode at 512^2, full depth;
+             encode + decode at 512^2, full depth; SDXL's CLIP-L and
+             OpenCLIP-bigG towers at full depth (penultimate states and
+             the pooled output) and one SDXL UNet step at 512^2 with the
+             pooled text and time_ids, full width, transformer depths cut
+             to (0, 2, 2);
 5. inpaint — the inpainting path at full width (SD1.5-inpaint UNet +
              ControlNet v11p + VAE + CLIP-L at 768^2, 30 DPM-Solver++ steps,
              CFG 9.0, two passes, bf16, placeholder weights) on a 750^2
@@ -77,8 +81,9 @@ Phases, each of which raises on failure (exit code != 0):
              and one by one must agree.
 
 7. sweep   — the directory sweep (``InkLayerPipeline.run_dir``) at full
-             width on 16 distinct 750^2 sketches with ``no_intermediate``
-             (the JAX bench's sweep configuration): the 16 runs one after
+             width on 8 distinct 750^2 sketches with ``no_intermediate``
+             (the JAX bench's sweep configuration, 16 sketches there, cut
+             to 8 to keep the script in its time): the 8 runs one after
              another (the outputs and launches every sweep is held to),
              one warm sweep, then one timed sweep each with 1 worker (the
              lookahead), 2 and 4 workers, and batches of 2 and 4; each
@@ -91,9 +96,20 @@ Phases, each of which raises on failure (exit code != 0):
              --host_id 1`` on 4 sketches must write sketches 1 and 3;
 8. conv    — the 3x3 NHWC convolution's entry point,
              ``scripts/torch_conv_ab.py``, at its four levels (checked,
-             timed beside cuDNN, its TMA bytes per call).
+             timed beside cuDNN, its TMA bytes per call);
+9. sdxl    — the SDXL inpainting backend at full width
+             (``SDXLInpaintPipeline.generate`` with the default
+             ``SDXLConfig``: the 2.6 B-parameter UNet, the CLIP-L and
+             OpenCLIP-bigG towers and the VAE at 1024^2, 20 steps, CFG
+             batch 2; seeded placeholder weights, bf16) on a 1024^2 sketch
+             and mask drawn here: one warm-up and one timed call, each with
+             exactly 1400 flash-attention (head dim 64) and 4200 LayerNorm
+             launches, finite latents and an output of the input's size;
+             stage times, ms per step, peak memory; one traced call.
 
-Phase 2 also holds the SAM encoder's kernels (relpos attention, MLP,
+Phase 2 also holds the flash attention and LayerNorm kernels at SDXL's
+shapes (head dim 64 over 4096 and 1024 tokens; 8192 x 640 and 2048 x 1280
+rows), and the SAM encoder's kernels (relpos attention, MLP,
 LayerNorm) at the SAM batch of 2 and 4 images that the micro-batched
 encoder launches, multi-scale deformable attention at GroundingDINO's
 batch of 2 and 4 images (the batched sweep), and the 3x3 convolution at
@@ -102,8 +118,8 @@ each level's line naming ``ops/conv.py conv_config``'s choice.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
-and 5, the serving run of phase 6, the timed sweeps of phase 7 and phase
-8, error, times and bound; the last line is the device record.  Exits
+and 5, the serving run of phase 6, the timed sweeps of phase 7, phase 8
+and the timed call of phase 9, error, times and bound; the last line is the device record.  Exits
 non-zero without a card, and when run outside a checkout of the
 repository.
 """
@@ -551,7 +567,8 @@ def phase_kernels(results: dict) -> None:
     # LayerNorm: SAM (4096, 1280) with and without the residual (and at the
     # SAM batches of 2 and 4 images), Swin stage-0 (40000, 96), DINOv2
     # (1370, 768), and the UNet's transformer blocks at the inpainting
-    # path's CFG batch of 2 (levels 0, 1 and 2 at 768^2).
+    # path's CFG batch of 2 (levels 0, 1 and 2 at 768^2), and SDXL's at
+    # 1024^2 with CFG batch 2 (levels 1 and 2: 2 x 64^2 and 2 x 32^2 rows).
     # Tolerance: fp32 statistics, bf16 outputs -> 2e-2 / 2e-2.  Library:
     # F.layer_norm (the residual form: add + F.layer_norm).  Bound: bytes
     # (about 8 fp32 operations per element).
@@ -569,6 +586,9 @@ def phase_kernels(results: dict) -> None:
                                ("(18432,320) UNet level 0", 18432, 320, False),
                                ("(4608,640) UNet level 1", 4608, 640, False),
                                ("(1152,1280) UNet level 2", 1152, 1280,
+                                False),
+                               ("(8192,640) SDXL level 1", 8192, 640, False),
+                               ("(2048,1280) SDXL level 2", 2048, 1280,
                                 False)):
         params = [1.0 + randn(c, std=0.1), randn(c, std=0.1)]
         x = randn(rows, c)
@@ -661,8 +681,11 @@ def phase_kernels(results: dict) -> None:
     # (2, 70, 64), one partial tile.  Head dims 40 and 80: the UNet's
     # self-attention at 768^2 for one layer with CFG (2 x 8 heads), 9216
     # tokens at level 0 and 2304 at level 1 (no partial tile), and tail
-    # cases (2, 70, 40) and (2, 100, 80).  Tolerance: bf16 probabilities in
-    # PV, bf16 output -> element-wise 2e-2 / 2e-2, and relative L2 <= 5e-3:
+    # cases (2, 70, 40) and (2, 100, 80).  SDXL at 1024^2 with CFG batch 2:
+    # 2 x 10 heads over 64^2 tokens (level 1) and 2 x 20 heads over 32^2
+    # (level 2, 8 query tiles per head), head dim 64.  Tolerance: bf16
+    # probabilities in PV, bf16 output -> element-wise 2e-2 / 2e-2, and
+    # relative L2 <= 5e-3:
     # the kernels read 2.0e-3 to 2.3e-3, while a kernel that leaves the
     # tail keys unmasked scales whole rows (by ~0.983 at (12, 1370, 64))
     # and reads 1.7e-2 there, 0.33 at (2, 70, 64) (measured on 64-key
@@ -673,7 +696,9 @@ def phase_kernels(results: dict) -> None:
                            ("(16,9216,40) UNet level 0", 16, 9216, 40),
                            ("(2,70,40) 70 of 128 keys", 2, 70, 40),
                            ("(16,2304,80) UNet level 1", 16, 2304, 80),
-                           ("(2,100,80) 100 of 128 keys", 2, 100, 80)):
+                           ("(2,100,80) 100 of 128 keys", 2, 100, 80),
+                           ("(20,4096,64) SDXL level 1", 20, 4096, 64),
+                           ("(40,1024,64) SDXL level 2", 40, 1024, 64)):
         args = [randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)]
         sc = d ** -0.5
         _kernel_case(
@@ -1092,6 +1117,69 @@ def reference_diffusion() -> dict:
         del m, text, masked, down, mid, eps, z, dec
         log(f"  {dev}: diffusion models at 512^2, one step + VAE "
             f"{time.perf_counter() - t0:.1f} s (build included)")
+    torch.cuda.empty_cache()
+    return {key: _rel_check(key, out["cuda"][key], out["cpu"][key])
+            for key in out["cpu"]}
+
+
+def reference_sdxl() -> dict:
+    """SDXL's models at full width, card bf16 against CPU fp32 with the
+    same seeded weights: both text towers at full depth on the default
+    prompts (the penultimate states and the pooled output), and one UNet
+    step (CFG batch 2, the pooled text and time_ids) at 512^2 with the
+    transformer depths cut to (0, 2, 2) (level 1's 32^2 = 1024 tokens take
+    the flash kernel on the card, level 2's 16^2 = 256 the plain sdpa).
+    Built once on the CPU; the CPU runs first, then the same modules move
+    to the card."""
+    import torch
+
+    from inklayer_tpu_torch.build import build_sdxl_models
+    from inklayer_tpu_torch.models.diffusion import CLIPTokenizer
+    from inklayer_tpu_torch.models.diffusion.sdxl import SDXLConfig
+
+    cfg = SDXLConfig(resolution=512, transformer_layers=(0, 2, 2))
+    s8 = cfg.resolution // 8
+    t0 = time.perf_counter()
+    models = build_sdxl_models(cfg, "cpu", torch.float32, seed=0)
+    del models["vae"]
+    log(f"  SDXL towers and cut-depth UNet built on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(8)
+    lat = torch.randn(1, 4, s8, s8, generator=gen)
+    mask_lat = (torch.rand(1, 1, s8, s8, generator=gen) > 0.5).float()
+    nine = torch.cat([lat, mask_lat, torch.randn(1, 4, s8, s8, generator=gen)],
+                     dim=1).expand(2, -1, -1, -1)
+    ids = torch.from_numpy(np.concatenate([
+        CLIPTokenizer().encode(cfg.negative_prompt),
+        CLIPTokenizer().encode(cfg.prompt)])).long()
+    ts = torch.tensor([500, 500], dtype=torch.int32)
+    size = cfg.resolution
+    tids = torch.tensor([[size, size, 0, 0, size, size]] * 2,
+                        dtype=torch.float32)
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            for name, m in models.items():
+                models[name] = m.to(device=dev, dtype=dtype)
+            models["unet"] = models["unet"].to(
+                memory_format=torch.channels_last)
+        with torch.inference_mode():
+            pen_l, _ = models["text_l"](ids.to(dev))
+            pen_g, pooled = models["text_g"](ids.to(dev))
+            eps = models["unet"](
+                nine.to(dev).contiguous(memory_format=torch.channels_last),
+                ts.to(dev), torch.cat([pen_l, pen_g], dim=-1),
+                pooled_text=pooled, time_ids=tids.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = {"sdxl_clip_l_penultimate": pen_l.float().cpu(),
+                    "sdxl_bigg_penultimate": pen_g.float().cpu(),
+                    "sdxl_bigg_pooled": pooled.float().cpu(),
+                    "sdxl_unet_eps_512": eps.float().cpu()}
+        log(f"  {dev}: SDXL towers + one cut-depth UNet step at 512^2 "
+            f"{time.perf_counter() - t0:.1f} s")
+    del models
     torch.cuda.empty_cache()
     return {key: _rel_check(key, out["cuda"][key], out["cpu"][key])
             for key in out["cpu"]}
@@ -1666,7 +1754,7 @@ def serve_requests(card: str, base: str, app, web_root: str) -> dict:
 # phase 7: the directory sweep
 # ---------------------------------------------------------------------------
 
-SWEEP_SKETCHES = 16
+SWEEP_SKETCHES = 8
 # the timed sweeps: (label, run_dir keywords); the batched ones with the
 # default workers
 SWEEP_MODES = (("workers 1 (lookahead)", {"workers": 1}),
@@ -1706,7 +1794,7 @@ def _same_by_iou(got_dir: str, want_dir: str) -> float:
 
 
 def phase_sweep(card: str) -> dict:
-    """The directory sweep at full width on 16 distinct 750^2 sketches,
+    """The directory sweep at full width on 8 distinct 750^2 sketches,
     ``no_intermediate`` (the JAX bench's sweep configuration): per-image
     runs one after another (the outputs and launches each sweep must
     equal), one warm sweep, one timed sweep per mode with exact launch
@@ -1867,6 +1955,111 @@ def conv_entry(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SDXL inpainting backend at full width
+# ---------------------------------------------------------------------------
+
+# one SDXL UNet forward (CFG batch 2, 1024^2: 128^2 latents) runs 70 basic
+# blocks (down level 1: 2 x 2, level 2: 2 x 10; mid 10; up level 2: 3 x 10,
+# level 1: 3 x 2): self-attention at 64^2 = 4096 tokens (10 blocks) and
+# 32^2 = 1024 (60) takes the flash kernel at head dim 64, and their 3
+# LayerNorms each (rows 2 x 4096 and 2 x 1024) the LayerNorm kernel; the
+# text towers' 154 rows and 77 keys, the cross-attention and the VAE take
+# the plain versions.  20 steps at strength 0.99 (t_start 0).
+SDXL_STEPS = 20
+EXPECTED_SDXL = {"flash_attention": 70 * SDXL_STEPS,
+                 "flash_attention/d64": 70 * SDXL_STEPS,
+                 "layernorm": 3 * 70 * SDXL_STEPS}
+
+
+def sdxl_mask(size: int = 1024):
+    """The region to inpaint: an ellipse over the sketch's lower boxes."""
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:size, 0:size]
+    inside = np.hypot((yy - 640) / 220.0, (xx - 560) / 300.0) < 1.0
+    return Image.fromarray(inside.astype(np.uint8) * 255)
+
+
+def phase_sdxl(card: str) -> dict:
+    """``SDXLInpaintPipeline.generate`` at full width (the default
+    ``SDXLConfig``: 1024^2, 20 steps, strength 0.99, CFG 7.5 at batch 2),
+    seeded placeholder weights, bf16, on a 1024^2 sketch and mask drawn
+    here: one warm-up and one timed call, each with exact launch counts,
+    finite latents of the right shape and an output of the input's size;
+    then one traced call."""
+    import gc
+
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.build import build_sdxl_models
+    from inklayer_tpu_torch.models.diffusion.sdxl import (SDXLConfig,
+                                                          SDXLInpaintPipeline)
+    from inklayer_tpu_torch.profiling import device_profile
+
+    cfg = SDXLConfig()
+    assert cfg.num_steps == SDXL_STEPS and \
+        round(cfg.num_steps * (1 - cfg.strength)) == 0
+    t0 = time.perf_counter()
+    models = build_sdxl_models(cfg, "cuda", torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"  SDXL models built in {build_s:.1f} s")
+    pipe = SDXLInpaintPipeline(models, cfg)
+    path = os.path.join(WORK, "sketch1024.png")
+    draw_sketch(path, size=cfg.resolution)
+    image = Image.open(path).convert("RGB")
+    mask = sdxl_mask(cfg.resolution)
+    latents = []
+    decode = pipe.vae.decode
+    pipe.vae.decode = lambda z: (latents.append(z), decode(z))[1]
+    res = {"build_s": build_s}
+    for label in ("warm-up", "timed"):
+        latents.clear()
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = pipe.generate(image, mask)
+        total = time.perf_counter() - t0
+        counts = {k: n for k, n in _kernels.launch_counts().items() if n}
+        if counts != EXPECTED_SDXL:
+            raise AssertionError(f"sdxl {label}: launched {counts}, expected "
+                                 f"{EXPECTED_SDXL}")
+        finite = [bool(torch.isfinite(z).all()) for z in latents]
+        if out.size != image.size or len(latents) != 1 or \
+                tuple(latents[0].shape) != (1, 4, 128, 128) or \
+                not all(finite):
+            raise AssertionError(f"sdxl {label}: output {out.size}, final "
+                                 f"latents {[tuple(z.shape) for z in latents]}"
+                                 f", finite {finite}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        st = pipe.stage_times
+        step_ms = st["loop"] / st["steps"] * 1e3
+        log(f"  generate ({label}) [{card}]: {total * 1e3:.1f} ms; per step "
+            f"{step_ms:.1f} ms ({st['steps']} steps, CFG batch 2); encode "
+            f"{st['encode'] * 1e3:.1f}, loop {st['loop'] * 1e3:.1f}, decode "
+            f"{st['decode'] * 1e3:.1f} ms; latents |max| "
+            f"{float(latents[0].abs().max()):.3f}; peak memory allocated "
+            f"{peak:.2f} GiB; launches {counts}")
+        res.update(total_ms=total * 1e3, step_ms=step_ms, peak_gib=peak,
+                   launches=counts)
+    prof = device_profile(lambda: (pipe.generate(image, mask),
+                                   torch.cuda.synchronize()))
+    res["idle_share"] = prof["idle_share"]
+    log(f"  traced generate [{card}]: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops")
+    for name, ms, calls in prof["kernels"]:
+        log(f"    {ms:9.3f} ms  {calls:6d} x  {name[:90]}")
+    pipe.vae.decode = decode
+    del pipe, models, latents
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def ptxas_entries(log_text: str) -> dict:
     """{mangled kernel name: {"regs", "stack", "spill_stores", "spill_loads",
     "smem"}} from nvcc's ``-Xptxas -v`` messages."""
@@ -1991,6 +2184,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_reference()
     reference_diffusion()
+    reference_sdxl()
     log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 5: the inpainting path at full width [{card}]")
@@ -2013,6 +2207,11 @@ def main() -> int:
     conv_counts = conv_entry(card)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 9: the SDXL inpainting backend at full width [{card}]")
+    t0 = time.perf_counter()
+    sdxl_res = phase_sdxl(card)
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -2021,15 +2220,17 @@ def main() -> int:
         line["kernels"].append({
             # ms, plain_ms, bound_ms, library_ms: sums over the phase-2
             # cases; launches: the last timed runs of phases 3 and 5, the
-            # serving run of phase 6, the timed sweeps of phase 7 and the
-            # convolution's entry point (phase 8)
+            # serving run of phase 6, the timed sweeps of phase 7, the
+            # convolution's entry point (phase 8) and the timed generate
+            # of phase 9
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
             + inpaint_res["bucket2"]["counts"].get(name, 0)
             + serve_res["launches"].get(name, 0)
             + sweep_res["launches"].get(name, 0)
-            + conv_counts.get(name, 0),
+            + conv_counts.get(name, 0)
+            + sdxl_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

@@ -50,7 +50,14 @@ def init_placeholder_params(model: nn.Module, seed: int,
     scale 1 and shift 0.  Deterministic for a seed, whatever the device."""
     gen = torch.Generator().manual_seed(seed)
     for t in list(model.parameters()) + list(model.buffers()):
-        if t.is_floating_point():
+        if not t.is_floating_point():
+            continue
+        if t.device.type == "cpu" and t.dtype == torch.float32 \
+                and t.is_contiguous() and t.numel() >= 16:
+            # in place: the same numbers as randn * std (the vectorised
+            # draw, 16 values at a time), without two temporaries
+            t.normal_(0.0, std, generator=gen)
+        else:
             t.copy_(torch.randn(t.shape, generator=gen) * std)
     for m in model.modules():
         if isinstance(m, (LayerNorm, nn.LayerNorm, nn.GroupNorm)):
@@ -197,6 +204,56 @@ def build_diffusion_models(cfg: PipelineConfig, device, dtype: torch.dtype,
         if name != "text":
             model = model.to(memory_format=torch.channels_last)
         models[name] = model
+    return models
+
+
+SDXL_COMPONENTS = ("unet", "vae", "text_l", "text_g")
+
+
+def build_sdxl_models(cfg=None, device="cuda",
+                      dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                      paths: Optional[dict] = None) -> dict:
+    """The SDXL-inpaint UNet, VAE, CLIP-L and OpenCLIP-bigG towers of
+    ``cfg`` (an ``SDXLConfig``; its defaults when None) on ``device`` in
+    ``dtype`` (the UNet and VAE channels-last), as {'unet', 'vae',
+    'text_l', 'text_g'}.  ``paths`` maps a component to its checkpoint
+    file (diffusers ``unet/``, ``vae/``, ``text_encoder/``,
+    ``text_encoder_2/``); a component without one gets seeded placeholder
+    params (seed + 10 + its index).  The modules are made without an
+    initialisation (``torch.device("meta")``, then ``to_empty``): the
+    checkpoint or the placeholders fill every value."""
+    from inklayer_tpu_torch.models.diffusion import sdxl
+    cfg = cfg if cfg is not None else sdxl.SDXLConfig()
+    dev = resolve_device(device)
+    paths = paths or {}
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        made = dict(zip(SDXL_COMPONENTS, sdxl.build_sdxl_models(cfg)))
+    models = {}
+    for i, (name, model) in enumerate(made.items()):
+        model = model.to_empty(device="cpu")
+        t1 = time.perf_counter()
+        path = paths.get(name)
+        if path:
+            if name == "unet":
+                weights.load_sdxl_unet(model, path)
+            elif name == "text_g":
+                weights.load_sdxl_text(model, path)
+            else:
+                weights.load_checkpoint(model, path, weights.DIFFUSION_IGNORE)
+            how = f"loaded from {path}"
+        else:
+            init_placeholder_params(model, seed + 10 + i)
+            how = "placeholder params"
+        model = model.to(device=dev, dtype=dtype).eval()
+        if name in ("unet", "vae"):
+            model = model.to(memory_format=torch.channels_last)
+        models[name] = model
+        n = sum(p.numel() for p in model.parameters())
+        print(f"[build] sdxl {name}: {n / 1e6:.1f} M params, {how} "
+              f"({time.perf_counter() - t1:.1f}s)")
+    print(f"[build] sdxl models on {dev} in {dtype} "
+          f"({time.perf_counter() - t0:.1f}s)")
     return models
 
 

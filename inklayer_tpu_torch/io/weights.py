@@ -22,6 +22,13 @@ No rule table is needed.
   not hold, ``KeyError`` for a parameter the file lacks, ``ValueError``
   for a shape that differs.
 
+SDXL (:func:`load_sdxl_unet`, :func:`load_sdxl_text`, the counterparts of
+the JAX package's ``load_sdxl_unet_params`` / ``load_sdxl_text_params``):
+the UNet, the VAE and the CLIP-L tower drop ``DIFFUSION_IGNORE``; the
+OpenCLIP-bigG tower keeps ``text_projection.weight`` (its pooled
+embedding) and drops only ``SDXL_TEXT_IGNORE``.  The published files are
+fp16 ``.safetensors``; every value loads as fp32.
+
 SAM's ``prompt_encoder.mask_downscaling.*`` (the mask-prompt convnet) is
 held by the port's ``PromptEncoder``, so a SAM checkpoint loads strictly
 with no ignore list.
@@ -60,6 +67,11 @@ DIFFUSION_IGNORE = [
     r"text_model\.embeddings\.position_ids",
     r".*\.num_batches_tracked",
     r"text_projection\..*",
+]
+# the bigG tower (text_encoder_2) loads its text_projection
+SDXL_TEXT_IGNORE = [
+    r"text_model\.embeddings\.position_ids",
+    r".*\.num_batches_tracked",
 ]
 
 # safetensors dtype names <-> torch dtypes
@@ -182,3 +194,14 @@ def load_checkpoint(model: nn.Module, path: str,
                              f"{tuple(want[k].shape)}")
     model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
     return model
+
+
+def load_sdxl_unet(model: nn.Module, path: str) -> nn.Module:
+    """The SDXL-inpaint UNet (diffusers ``unet/``) into ``model``."""
+    return load_checkpoint(model, path, DIFFUSION_IGNORE)
+
+
+def load_sdxl_text(model: nn.Module, path: str) -> nn.Module:
+    """The OpenCLIP-bigG tower (``text_encoder_2/``), ``text_projection``
+    included: a file without it raises."""
+    return load_checkpoint(model, path, SDXL_TEXT_IGNORE)

@@ -3,7 +3,9 @@ tokenizer (port of :mod:`inklayer_tpu.models.diffusion.clip_text`).
 
 Encoder: vocab 49408, hidden 768, 12 layers / 12 heads, quick-GELU, causal
 attention, final LayerNorm (eps 1e-5); SD uses the last hidden state (77
-tokens).  Parameters carry the transformers ``CLIPTextModel`` names
+tokens).  ``act="gelu"`` (exact erf) is the OpenCLIP-bigG tower's MLP
+activation (SDXL's second text encoder, :mod:`.sdxl`).  Parameters carry
+the transformers ``CLIPTextModel`` names
 (``text_model.encoder.layers.{i}.self_attn.q_proj`` ...), so the JAX
 package's ``CLIP_TEXT_RULES`` bridge its params.
 
@@ -25,6 +27,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from inklayer_tpu_torch.nn.layers import LayerNorm
@@ -53,23 +56,27 @@ class CLIPAttention(nn.Module):
         return self.out_proj(out.transpose(1, 2).reshape(b, n, c))
 
 
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
+
+
 class CLIPMLP(nn.Module):
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, act: str = "quick_gelu"):
         super().__init__()
+        self.act = ACTIVATIONS[act]
         self.fc1 = nn.Linear(hidden, hidden * 4)
         self.fc2 = nn.Linear(hidden * 4, hidden)
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPTextLayer(nn.Module):
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int, act: str = "quick_gelu"):
         super().__init__()
         self.layer_norm1 = LayerNorm(hidden, eps=1e-5)
         self.self_attn = CLIPAttention(hidden, heads)
         self.layer_norm2 = LayerNorm(hidden, eps=1e-5)
-        self.mlp = CLIPMLP(hidden)
+        self.mlp = CLIPMLP(hidden, act)
 
     def forward(self, x, causal):
         x = x + self.self_attn(self.layer_norm1(x), causal)
@@ -84,38 +91,46 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, hidden: int, layers: int, heads: int):
+    def __init__(self, hidden: int, layers: int, heads: int, act: str):
         super().__init__()
-        self.layers = nn.ModuleList(CLIPTextLayer(hidden, heads)
+        self.layers = nn.ModuleList(CLIPTextLayer(hidden, heads, act)
                                     for _ in range(layers))
 
 
 class _TextModel(nn.Module):
-    def __init__(self, vocab_size, hidden, layers, heads, max_len):
+    def __init__(self, vocab_size, hidden, layers, heads, max_len, act):
         super().__init__()
         self.embeddings = _Embeddings(vocab_size, hidden, max_len)
-        self.encoder = _Encoder(hidden, layers, heads)
+        self.encoder = _Encoder(hidden, layers, heads, act)
         self.final_layer_norm = LayerNorm(hidden, eps=1e-5)
+
+    def hidden_states(self, input_ids: torch.Tensor):
+        """(B, n) int -> (the last layer's input, the last layer's output)
+        of the causal stack (the final LayerNorm not applied)."""
+        n = input_ids.shape[1]
+        x = self.embeddings.token_embedding(input_ids) \
+            + self.embeddings.position_embedding.weight[:n]
+        causal = torch.ones(n, n, dtype=torch.bool,
+                            device=input_ids.device).tril()
+        penultimate = x
+        for layer in self.encoder.layers:
+            penultimate = x
+            x = layer(x, causal)
+        return penultimate, x
 
 
 class CLIPTextEncoder(nn.Module):
     def __init__(self, vocab_size: int = 49408, hidden: int = 768,
-                 layers: int = 12, heads: int = 12, max_len: int = 77):
+                 layers: int = 12, heads: int = 12, max_len: int = 77,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.text_model = _TextModel(vocab_size, hidden, layers, heads,
-                                     max_len)
+                                     max_len, act)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, n) int -> (B, n, hidden) last hidden state."""
         tm = self.text_model
-        n = input_ids.shape[1]
-        x = tm.embeddings.token_embedding(input_ids) \
-            + tm.embeddings.position_embedding.weight[:n]
-        causal = torch.ones(n, n, dtype=torch.bool,
-                            device=input_ids.device).tril()
-        for layer in tm.encoder.layers:
-            x = layer(x, causal)
-        return tm.final_layer_norm(x)
+        return tm.final_layer_norm(tm.hidden_states(input_ids)[1])
 
 
 # ---------------------------------------------------------------------------

@@ -57,9 +57,10 @@ class ControlNet(nn.Module):
         self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimeEmbedding(ch[0], temb)
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(ch[0])
-        has_attn = [i < len(ch) - 1 for i in range(len(ch))]
-        self.down_blocks = down_blocks(ch[0], ch, layers_per_block, has_attn,
-                                       temb, num_heads, context_dim)
+        depths = [int(i < len(ch) - 1) for i in range(len(ch))]
+        self.down_blocks = down_blocks(ch[0], ch, layers_per_block, depths,
+                                       temb, [num_heads] * len(ch),
+                                       context_dim)
         self.mid_block = _MidBlock(ch[-1], temb, num_heads, context_dim)
         self.controlnet_down_blocks = nn.ModuleList(
             nn.Conv2d(c, c, 1) for c in skip_channels(ch, layers_per_block))

@@ -16,8 +16,16 @@ Parameters carry the diffusers checkpoint names, so the JAX package's
 1024 keys take the flash kernel (K7; at 768^2 the 96^2 = 9216 tokens of
 level 0 at head_dim 40 and the 48^2 = 2304 of level 1 at head_dim 80),
 fewer (and the 77-key cross-attention) the matmul + softmax ``sdpa``.
-The SDXL options of the JAX module (stacked transformer blocks, linear
-projections, the text_time embedding) are not ported.
+
+The SDXL options of the JAX module: ``transformer_layers`` deeper than 1
+(diffusers' ``attentions.{j}.transformer_blocks.{d}``; the mid block takes
+the deepest level's depth), ``linear_proj`` (``nn.Linear`` proj_in /
+proj_out on the (B, H*W, C) tokens), ``head_dim`` (heads = C // head_dim)
+and the text_time embedding (``add_embedding``: the pooled text, then the
+sinusoid of each of the 6 float time-ids, into a 2-layer MLP added to the
+time embedding).  SDXL's (320, 640, 1280) levels with depths (0, 2, 10) at
+a 1024^2 image run the flash kernel at head_dim 64 over 64^2 = 4096 tokens
+(level 1) and 32^2 = 1024 (level 2).
 """
 
 from __future__ import annotations
@@ -147,24 +155,35 @@ class BasicTransformerBlock(nn.Module):
 
 
 class TransformerBlock2D(nn.Module):
-    """GroupNorm, 1x1-conv proj_in, one basic block over the H*W tokens,
-    1x1-conv proj_out, residual (SD1.5's Transformer2DModel)."""
+    """GroupNorm, proj_in, ``depth`` basic blocks over the H*W tokens,
+    proj_out, residual (diffusers' Transformer2DModel).  The projections
+    are 1x1 convolutions (SD1.5) or, with ``linear_proj``, linear layers
+    on the tokens (SDXL)."""
 
-    def __init__(self, channels: int, heads: int, context_dim: int):
+    def __init__(self, channels: int, heads: int, context_dim: int,
+                 depth: int = 1, linear_proj: bool = False):
         super().__init__()
+        self.linear_proj = linear_proj
         self.norm = group_norm(channels)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        proj = (lambda: nn.Linear(channels, channels)) if linear_proj else \
+            (lambda: nn.Conv2d(channels, channels, 1))
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, heads, context_dim)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+            BasicTransformerBlock(channels, heads, context_dim)
+            for _ in range(depth))
+        self.proj_out = proj()
 
     def forward(self, x, context):
         b, c, h, w = x.shape
-        y = self.proj_in(self.norm(x))
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y = self.transformer_blocks[0](y, context)
-        y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return x + self.proj_out(y)
+        tokens = lambda t: t.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        image = lambda t: t.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        y = self.norm(x)
+        y = self.proj_in(tokens(y)) if self.linear_proj \
+            else tokens(self.proj_in(y))
+        for blk in self.transformer_blocks:
+            y = blk(y, context)
+        return x + (image(self.proj_out(y)) if self.linear_proj
+                    else self.proj_out(image(y)))
 
 
 class Downsample(nn.Module):
@@ -200,12 +219,13 @@ class _Block(nn.Module):
 
 
 class _MidBlock(nn.Module):
-    def __init__(self, ch: int, temb_dim: int, heads: int, context_dim: int):
+    def __init__(self, ch: int, temb_dim: int, heads: int, context_dim: int,
+                 depth: int = 1, linear_proj: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([ResnetBlockT(ch, ch, temb_dim),
                                       ResnetBlockT(ch, ch, temb_dim)])
         self.attentions = nn.ModuleList(
-            [TransformerBlock2D(ch, heads, context_dim)])
+            [TransformerBlock2D(ch, heads, context_dim, depth, linear_proj)])
 
     def forward(self, x, temb, context):
         x = self.resnets[0](x, temb)
@@ -214,16 +234,20 @@ class _MidBlock(nn.Module):
 
 
 def down_blocks(in_ch: int, block_channels: Sequence[int],
-                layers_per_block: int, has_attn: Sequence[bool], temb_dim: int,
-                heads: int, context_dim: int) -> nn.ModuleList:
-    """The UNet's (and the ControlNet's) encoder blocks."""
+                layers_per_block: int, depths: Sequence[int], temb_dim: int,
+                heads: Sequence[int], context_dim: int,
+                linear_proj: bool = False) -> nn.ModuleList:
+    """The UNet's (and the ControlNet's) encoder blocks; level i has
+    ``depths[i]`` basic blocks per transformer (0: none) of ``heads[i]``
+    heads."""
     blocks, prev = [], in_ch
     for i, c in enumerate(block_channels):
         res, att = [], []
         for j in range(layers_per_block):
             res.append(ResnetBlockT(prev if j == 0 else c, c, temb_dim))
-            if has_attn[i]:
-                att.append(TransformerBlock2D(c, heads, context_dim))
+            if depths[i]:
+                att.append(TransformerBlock2D(c, heads[i], context_dim,
+                                              depths[i], linear_proj))
         last = i == len(block_channels) - 1
         blocks.append(_Block(res, att, None if last else Downsample(c)))
         prev = c
@@ -262,33 +286,45 @@ class UNet2DCondition(nn.Module):
                  context_dim: int = 768,
                  transformer_layers: Tuple[int, ...] = (1, 1, 1, 0),
                  linear_proj: bool = False, head_dim: int = 0,
-                 addition_embed_dim: int = 0):
+                 addition_embed_dim: int = 0, addition_proj_dim: int = 0):
+        """``transformer_layers``: basic blocks per transformer of each
+        down level (0: a plain level; the up levels mirror it, the mid
+        block takes the largest); ``head_dim`` > 0: heads = C // head_dim,
+        else ``num_heads``; ``addition_embed_dim`` > 0: the text_time
+        embedding, an MLP from ``addition_proj_dim`` = pooled text + 6 *
+        ``addition_embed_dim`` inputs."""
         super().__init__()
-        if any(d > 1 for d in transformer_layers) or linear_proj or head_dim \
-                or addition_embed_dim:
-            raise NotImplementedError(
-                "the SDXL options (stacked transformer blocks, linear "
-                "projections, head_dim, the text_time embedding) are not "
-                "ported")
+        if addition_embed_dim and not addition_proj_dim:
+            raise ValueError("addition_embed_dim needs addition_proj_dim "
+                             "(the pooled text width + 6 * "
+                             "addition_embed_dim)")
         ch = block_channels
         temb = ch[0] * 4
+        depths = tuple(transformer_layers)
+        heads = [c // head_dim if head_dim else num_heads for c in ch]
         self.block_channels = tuple(ch)
+        self.addition_embed_dim = addition_embed_dim
         self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimeEmbedding(ch[0], temb)
-        has_attn = [d > 0 for d in transformer_layers]
-        self.down_blocks = down_blocks(ch[0], ch, layers_per_block, has_attn,
-                                       temb, num_heads, context_dim)
-        self.mid_block = _MidBlock(ch[-1], temb, num_heads, context_dim)
+        if addition_embed_dim:
+            self.add_embedding = TimeEmbedding(addition_proj_dim, temb)
+        self.down_blocks = down_blocks(ch[0], ch, layers_per_block, depths,
+                                       temb, heads, context_dim, linear_proj)
+        self.mid_block = _MidBlock(ch[-1], temb, heads[-1], context_dim,
+                                   max(depths), linear_proj)
         # up: mirrored, layers_per_block + 1 resnets each taking a skip
         skip_ch = skip_channels(ch, layers_per_block)
         ups, prev = [], ch[-1]
         rev = list(reversed(ch))
         for i, c in enumerate(rev):
+            depth = depths[len(ch) - 1 - i]
             res, att = [], []
             for _ in range(layers_per_block + 1):
                 res.append(ResnetBlockT(prev + skip_ch.pop(), c, temb))
-                if has_attn[len(ch) - 1 - i]:
-                    att.append(TransformerBlock2D(c, num_heads, context_dim))
+                if depth:
+                    att.append(TransformerBlock2D(
+                        c, heads[len(ch) - 1 - i], context_dim, depth,
+                        linear_proj))
                 prev = c
             last = i == len(ch) - 1
             ups.append(_Block(res, att, None if last else Upsample(c),
@@ -299,13 +335,24 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, context,
                 down_residuals: Optional[Sequence[torch.Tensor]] = None,
-                mid_residual: Optional[torch.Tensor] = None):
+                mid_residual: Optional[torch.Tensor] = None,
+                pooled_text: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None):
         """sample (B, in_ch, H, W) latents; timesteps (B,); context (B, T,
-        context_dim); down/mid_residual: the ControlNet's additions.
-        Returns (B, out_ch, H, W) in the weights' dtype."""
+        context_dim); down/mid_residual: the ControlNet's additions;
+        pooled_text (B, D) and time_ids (B, 6) floats: SDXL's text_time
+        conditioning (used when the UNet has ``add_embedding`` and
+        ``pooled_text`` is given).  Returns (B, out_ch, H, W) in the
+        weights' dtype."""
         dtype = self.conv_in.weight.dtype
         temb = self.time_embedding(
             timestep_embedding(timesteps, self.block_channels[0]).to(dtype))
+        if self.addition_embed_dim and pooled_text is not None:
+            b = pooled_text.shape[0]
+            tid = timestep_embedding(time_ids.reshape(-1),
+                                     self.addition_embed_dim).reshape(b, -1)
+            temb = temb + self.add_embedding(
+                torch.cat([pooled_text.float(), tid], dim=-1).to(dtype))
         x = self.conv_in(sample.to(dtype))
         x, skips = run_down_blocks(self.down_blocks, x, temb, context)
         x = self.mid_block(x, temb, context)

@@ -14,7 +14,11 @@ with ``inpaint``, the inpainter then completes the occluded layers from
 ``masks_final/`` (``complete_layers/``, ``complete_layers_process/``,
 ``complete_layers_rgba/``).  ``no_intermediate`` leaves only the items of
 ``KEEP_LIST``, and makes and cleans masks only for the NMS prefilter's
-survivors, padded to a power-of-two bucket.
+survivors, padded to a power-of-two bucket.  When the output directory
+holds ``mmdet_out/*.json`` (the mmdetection alt route's boxes, written
+after the directory is prepared), its boxes and scores replace
+GroundingDINO's before NMS, while the masks still come from
+GroundingDINO's boxes, as in the JAX runner.
 
 Masks, depth and the refine stack stay on the model's device.  The host
 writes on two writer threads: each stack is read back by a non-blocking
@@ -39,6 +43,7 @@ ends with a synchronise of the calling thread's current stream.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import threading
@@ -347,6 +352,14 @@ class InkLayerPipeline:
         gray_dev = upload(gray, dev)
         t0 = self._stage("write", t0)
 
+        # the mmdetection alt route (refinement/bbox_filter.py:40-45): when
+        # <out_dir>/mmdet_out/*.json exists its boxes replace GDINO's before
+        # NMS, so the detect -> decode chain and the survivor-subset masks
+        # are off.  Globbed after prepare_out_dir, which empties a non-empty
+        # out_dir, as the JAX runner does: only a file written after that
+        # is read.
+        mmdet_json = glob.glob(os.path.join(out_dir, "mmdet_out", "*.json"))
+
         # detect; the top-K boxes stay on the device and chain into the SAM
         # decode (the surviving detections are a score-sorted prefix).  The
         # sweep may have run it: the lookahead leaves the device triple, the
@@ -366,7 +379,7 @@ class InkLayerPipeline:
                 state["embedding"].record_stream(
                     torch.cuda.current_stream(dev))
         lowres = None
-        if boxes_dev is not None:
+        if boxes_dev is not None and not mmdet_json:
             lowres, _iou = self.sam.decode_lowres_state(
                 state, boxes_cxcywh_to_sam_space(boxes_dev, (h, w),
                                                  state["scale"]))
@@ -409,7 +422,7 @@ class InkLayerPipeline:
         subset = no_intermediate and lowres is not None and n_det > 0
         if lowres is not None and n_det and not subset:
             masks_dev = self.sam.masks_from_lowres(state, lowres, n_det)
-        elif lowres is None and n_det:  # host boxes (the batched prefill)
+        elif lowres is None and n_det:  # host boxes (batched prefill, mmdet)
             masks_dev, _iou = self.sam.predict_device_state(state, boxes_abs)
         else:
             masks_dev = torch.zeros((0, h, w), dtype=torch.bool, device=dev)
@@ -440,6 +453,16 @@ class InkLayerPipeline:
 
         if not no_intermediate:
             self._submit(write_cleaned, masks_readback(cleaned))
+
+        if mmdet_json:  # the alt route's boxes; the masks stay GDINO's
+            with open(mmdet_json[0]) as f:
+                alt = json.load(f)
+            alt_norm = np.asarray(alt["bboxes"], float)
+            boxes_abs = alt_norm * np.asarray([w, h, w, h]) \
+                if alt_norm.size and alt_norm.max() <= 1.0 else alt_norm
+            scores = np.asarray(alt["scores"], float)
+            xyxy_norm = boxes_abs / np.asarray([w, h, w, h]) \
+                if boxes_abs.size else boxes_abs
 
         # sketch NMS: host prefilter + gates, then the NMS + depth-stat front
         kept0, order0, gate, iou_bbox = nms_host_prefilter(

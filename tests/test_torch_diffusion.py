@@ -12,6 +12,8 @@ models in fp32, relative L2 error <= 1e-4 (float32 summation order; the
 UNet and VAE stack some 40 convolutions; the readings are 1e-7 to 3e-6).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,8 @@ import pytest
 import torch
 
 from inklayer_tpu.io.weights import (CLIP_TEXT_RULES, CONTROLNET_RULES,
-                                     UNET_RULES, VAE_RULES)
+                                     UNET_RULES, VAE_RULES, Rule,
+                                     _sdxl_unet_rules)
 from inklayer_tpu.models.diffusion import (AutoencoderKL as JaxVAE,
                                            CLIPTextEncoder as JaxCLIP,
                                            CLIPTokenizer as JaxTokenizer,
@@ -226,8 +229,58 @@ def test_vae_encode_decode_match_jax(models, rng):
     assert _rel(_nhwc(got), want) <= REL
 
 
-def test_unet_refuses_the_sdxl_options():
-    for kw in ({"transformer_layers": (0, 2, 10)}, {"linear_proj": True},
-               {"head_dim": 64}, {"addition_embed_dim": 256}):
-        with pytest.raises(NotImplementedError):
-            UNet2DCondition(**kw)
+def _with_proj(rules, kind):
+    """``rules`` with the transformers' proj_in / proj_out as ``kind``
+    ("conv": 1x1 convolutions, "linear": linear layers)."""
+    return [Rule(r.pattern, r.path, kind)
+            if re.search(r"proj_(in|out)\\\.weight$", r.pattern) else r
+            for r in rules]
+
+
+# each SDXL option of the UNet on its own, on the TINY SD1.5 config; the
+# rule table that bridges that layout
+SDXL_OPTIONS = {
+    "transformer_layers": ({"transformer_layers": (2, 2, 2, 0)},
+                           _with_proj(_sdxl_unet_rules((2, 2, 2, 0)), "conv")),
+    "linear_proj": ({"linear_proj": True}, _with_proj(UNET_RULES, "linear")),
+    "head_dim": ({"head_dim": 8}, UNET_RULES),
+    "addition_embed_dim": (
+        {"addition_embed_dim": 4, "addition_proj_dim": 12 + 6 * 4},
+        UNET_RULES + [
+            Rule(r"add_embedding\.(linear_[12])\.weight",
+                 r"add_embedding/\1/kernel", "linear"),
+            Rule(r"add_embedding\.(linear_[12])\.bias",
+                 r"add_embedding/\1/bias")]),
+}
+
+
+@pytest.mark.parametrize("option", list(SDXL_OPTIONS))
+def test_unet_refuses_the_sdxl_options(option, rng):
+    """Named for the refusal it replaces: each SDXL option, alone on the
+    SD1.5 layout, builds and matches the JAX UNet."""
+    kw, rules = SDXL_OPTIONS[option]
+    c = TINY.cross_attention_dim
+    jm = JaxUNet(block_channels=TINY.unet_block_channels, context_dim=c,
+                 **kw)
+    tm = UNet2DCondition(block_channels=TINY.unet_block_channels,
+                         context_dim=c, **kw)
+    x, ts, ctx = _unet_inputs(rng)
+    text_time = "addition_embed_dim" in kw
+    pooled = rng.standard_normal((2, 12)).astype(np.float32)
+    tids = np.asarray([[768, 768, 0, 0, 768, 768]] * 2, np.float32)
+    args = (jnp.zeros((2, 8, 8, 9)), jnp.zeros((2,), jnp.int32),
+            jnp.zeros((2, TINY.text_maxlen, c)))
+    if text_time:
+        args += (None, None, False, jnp.zeros((2, 12)), jnp.zeros((2, 6)))
+    params, tm = _bridge(jm, args, tm, rules, 17)
+    kw_j = dict(pooled_text=jnp.asarray(pooled),
+                time_ids=jnp.asarray(tids)) if text_time else {}
+    kw_t = dict(pooled_text=torch.from_numpy(pooled),
+                time_ids=torch.from_numpy(tids)) if text_time else {}
+    want = jm.apply(params, jnp.asarray(x), jnp.asarray(ts),
+                    jnp.asarray(ctx), **kw_j)
+    with torch.no_grad():
+        got = tm(_nchw(x), torch.from_numpy(ts), torch.from_numpy(ctx),
+                 **kw_t)
+    assert got.shape == (2, 4, 8, 8)
+    assert _rel(_nhwc(got), want) <= REL

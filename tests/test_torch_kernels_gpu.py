@@ -540,3 +540,55 @@ def test_conv3x3_refuses_what_the_kernel_does_not_take(gen):
     buf = _randn(gen, 1 + 8 * 8 * 16)
     with pytest.raises(ValueError, match="aligned"):
         conv.conv3x3_nhwc(buf[1:].view(1, 8, 8, 16), wt)
+
+
+# SDXL at 1024^2 with CFG batch 2: self-attention over 64^2 tokens with 10
+# heads (level 1) and 32^2 with 20 heads (level 2), head_dim 64; the
+# transformer LayerNorms at (2 * 64^2, 640) and (2 * 32^2, 1280)
+@pytest.mark.parametrize("bh,n", [(20, 4096), (40, 1024)])
+def test_flash_attention_sdxl_shapes(gen, bh, n):
+    q, k, v = (_randn(gen, bh, n, 64) for _ in range(3))
+    got = attention.flash_attention(q, k, v)
+    want = attention.flash_attention_plain(*_f32([q, k, v]), 64 ** -0.5)
+    torch.testing.assert_close(got.float(), want, **TOL)
+    assert _rel_l2(got, want) <= 5e-3
+
+
+@pytest.mark.parametrize("rows,c", [(8192, 640), (2048, 1280)])
+def test_layernorm_sdxl_shapes(gen, rows, c):
+    x = _randn(gen, rows, c)
+    sc, bi = 1 + _randn(gen, c, std=0.1), _randn(gen, c, std=0.1)
+    torch.testing.assert_close(norm.layernorm_2d(x, sc, bi).float(),
+                               norm.layernorm_2d_plain(*_f32([x, sc, bi])),
+                               **TOL)
+
+
+def test_sdxl_generate_launches_its_kernels(gen):
+    """A narrow SDXL pipeline on the card (blocks (64, 64, 64), depths
+    (0, 2, 2), head_dim 64, a 512^2 image: 64^2 latents): per UNet forward
+    the 10 self-attentions of level 1 (32^2 = 1024 tokens) take the flash
+    kernel and level 2's 256 tokens take sdpa; the LayerNorms of all 22
+    basic blocks (2048 and 512 rows) take the kernel.  Two steps."""
+    from PIL import Image
+
+    from inklayer_tpu_torch.build import build_sdxl_models
+    from inklayer_tpu_torch.models.diffusion.sdxl import (SDXLConfig,
+                                                          SDXLInpaintPipeline)
+
+    cfg = SDXLConfig(resolution=512, num_steps=2, block_channels=(64, 64, 64),
+                     transformer_layers=(0, 2, 2), context_dim=128,
+                     pooled_dim=64, vae_channels=(8, 8, 8, 8),
+                     text_l_hidden=64, text_g_hidden=64, text_l_layers=2,
+                     text_g_layers=2)
+    pipe = SDXLInpaintPipeline(build_sdxl_models(cfg, "cuda", torch.bfloat16),
+                               cfg)
+    image = Image.new("RGB", (300, 200), "white")
+    mask = Image.new("L", (300, 200), 0)
+    mask.paste(255, (50, 40, 200, 150))
+    _kernels.reset_launch_counts()
+    out = pipe.generate(image, mask)
+    counts = _kernels.launch_counts()
+    assert out.size == image.size
+    assert counts.get("flash_attention/d64", 0) == 10 * 2
+    assert counts.get("layernorm", 0) == 3 * 22 * 2
+    assert pipe.stage_times["steps"] == 2

@@ -53,8 +53,9 @@ def _masks(out_dir, sub="masks"):
                    for n in names]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def pipeline_pair():
+    """(cfg, the JAX InkLayerPipeline, the port's) on TINY_PIPE with
+    box_threshold 0.0 and the same random params in both."""
     cfg = dataclasses.replace(
         TINY_PIPE,
         gdino=dataclasses.replace(TINY_PIPE.gdino, box_threshold=0.0))
@@ -71,6 +72,12 @@ def runs(tmp_path_factory):
                             SamPredictor(s_model,
                                          box_capacity=cfg.gdino.max_boxes),
                             DepthEstimator(d_model), cfg)
+    return cfg, jax_pipe, port
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    cfg, jax_pipe, port = pipeline_pair()
     tmp = tmp_path_factory.mktemp("slice")
     sketch = _sketch(tmp)
     return (jax_pipe.run(sketch, str(tmp / "jax")),
