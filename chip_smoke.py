@@ -105,11 +105,29 @@ Phases, each of which raises on failure (exit code != 0):
              and mask drawn here: one warm-up and one timed call, each with
              exactly 1400 flash-attention (head dim 64) and 4200 LayerNorm
              launches, finite latents and an output of the input's size;
-             stage times, ms per step, peak memory; one traced call.
+             stage times, ms per step, peak memory; one traced call;
+10. prompts — the device NMS front (``PipelineConfig.device_front``) on
+             phase 3's sketch and configuration, off and on in turns (one
+             warm-up each, then 3 pairs), keeping the intermediates and
+             with ``no_intermediate``: launches exact and equal both ways,
+             one read-back wait fewer with the front, bboxes_final.json and
+             every masks_final/ PNG equal, p50 both ways, one traced run
+             each, and the front alone traced; the automatic mask
+             generator (``SamAutomaticMaskGenerator.generate``) on the same
+             sketch at the reference defaults (32 points per side, 64 a
+             batch; a warm-up and a timed call) and with every stage
+             exercised (16 per side, crop_n_layers 1, open thresholds),
+             each with exact launches (SAM's encodes and decode batches,
+             ``sam_launches``) and checked records; ``SamPredictor``
+             point prompts with multimask output, then a mask prompt (the
+             LayerNorm kernel at 64 x 64^2 rows of 16 channels); and
+             ``python -m inklayer_tpu_torch.pipeline.mmdet_route`` writing
+             the JAX package's JSON keys.
 
 Phase 2 also holds the flash attention and LayerNorm kernels at SDXL's
 shapes (head dim 64 over 4096 and 1024 tokens; 8192 x 640 and 2048 x 1280
-rows), and the SAM encoder's kernels (relpos attention, MLP,
+rows), the LayerNorm kernel at the SAM mask prompt's 64 x 64^2 rows of 16
+channels, and the SAM encoder's kernels (relpos attention, MLP,
 LayerNorm) at the SAM batch of 2 and 4 images that the micro-batched
 encoder launches, multi-scale deformable attention at GroundingDINO's
 batch of 2 and 4 images (the batched sweep), and the 3x3 convolution at
@@ -118,8 +136,9 @@ each level's line naming ``ops/conv.py conv_config``'s choice.
 
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
-and 5, the serving run of phase 6, the timed sweeps of phase 7, phase 8
-and the timed call of phase 9, error, times and bound; the last line is the device record.  Exits
+and 5, the serving run of phase 6, the timed sweeps of phase 7, phase 8,
+the timed call of phase 9 and the checked calls of phase 10, error, times
+and bound; the last line is the device record.  Exits
 non-zero without a card, and when run outside a checkout of the
 repository.
 """
@@ -567,8 +586,10 @@ def phase_kernels(results: dict) -> None:
     # LayerNorm: SAM (4096, 1280) with and without the residual (and at the
     # SAM batches of 2 and 4 images), Swin stage-0 (40000, 96), DINOv2
     # (1370, 768), and the UNet's transformer blocks at the inpainting
-    # path's CFG batch of 2 (levels 0, 1 and 2 at 768^2), and SDXL's at
-    # 1024^2 with CFG batch 2 (levels 1 and 2: 2 x 64^2 and 2 x 32^2 rows).
+    # path's CFG batch of 2 (levels 0, 1 and 2 at 768^2), SDXL's at
+    # 1024^2 with CFG batch 2 (levels 1 and 2: 2 x 64^2 and 2 x 32^2 rows),
+    # and the SAM mask prompt's LN(16) over the 64 prompts' 64^2 rows (2
+    # lanes a row).
     # Tolerance: fp32 statistics, bf16 outputs -> 2e-2 / 2e-2.  Library:
     # F.layer_norm (the residual form: add + F.layer_norm).  Bound: bytes
     # (about 8 fp32 operations per element).
@@ -589,7 +610,9 @@ def phase_kernels(results: dict) -> None:
                                 False),
                                ("(8192,640) SDXL level 1", 8192, 640, False),
                                ("(2048,1280) SDXL level 2", 2048, 1280,
-                                False)):
+                                False),
+                               ("(262144,16) SAM mask prompt 64 x 64^2",
+                                64 * 4096, 16, False)):
         params = [1.0 + randn(c, std=0.1), randn(c, std=0.1)]
         x = randn(rows, c)
         moved = 2.0 * (rows * c * (4 if res else 2) + 2 * c)
@@ -2059,6 +2082,339 @@ def phase_sdxl(card: str) -> dict:
     torch.cuda.empty_cache()
     return res
 
+# ---------------------------------------------------------------------------
+# phase 10: the device NMS front, SAM's point and mask prompts, the
+# automatic mask generator and the mmdetection route's producer
+# ---------------------------------------------------------------------------
+
+SAM_BLOCKS = 32
+# LayerNorm launches of SAM ViT-H: per encode, the residual pair of each of
+# the 32 blocks (norm1, norm2: 4096 x 1280 rows) and the neck's two (4096 x
+# 256); per decode of n prompts with t sparse tokens each, the keys' norm4
+# of both two-way layers (n x 4096 rows) and the upscaling LN(64) (n x
+# 128^2), and the 7 query norms (norm1-3 of both layers, norm_final_attn)
+# only when their n x (5 + t) rows reach the kernel's 512 (at the 64
+# prompts of a box or point batch, t = 2: 448 rows, so not); a mask prompt
+# adds LN(16) over n x 64^2 rows (LN(4) takes the plain version)
+LN_PER_ENCODE = 2 * SAM_BLOCKS + 2
+
+
+def sam_layernorm_launches(encodes: int, decodes: int, n: int = 64,
+                           t: int = 2, mask_prompts: int = 0) -> int:
+    per_decode = 2 + 1 + (7 if n * (5 + t) >= 512 else 0)
+    return encodes * LN_PER_ENCODE + decodes * per_decode + mask_prompts
+
+
+def sam_launches(encodes: int, decodes: int, mask_prompts: int = 0) -> dict:
+    """Every kernel launch of SAM encodes and 64-prompt decodes."""
+    return {"layernorm": sam_layernorm_launches(encodes, decodes,
+                                                mask_prompts=mask_prompts),
+            "mlp_gelu": SAM_BLOCKS * encodes,
+            "relpos_attention": SAM_BLOCKS * encodes}
+
+
+def _front_pairs(card: str, pipe, cfg, sketch: str, no_intermediate: bool):
+    """The default run with the device front off and on, in turns: one
+    warm-up each, then TIMED_RUNS pairs; launches exact and equal both
+    ways, one read-back fewer with the front, and the same final files."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.profiling import device_profile
+
+    mode = "no_intermediate" if no_intermediate else "intermediates kept"
+    times = {False: [], True: []}
+    dirs, syncs, counts = {}, {}, {}
+    for i in range(1 + TIMED_RUNS):
+        for on in (False, True):
+            pipe.cfg = dataclasses.replace(cfg, device_front=on)
+            _kernels.reset_launch_counts()
+            before = pipe.sync_count
+            t0 = time.perf_counter()
+            dirs[on] = pipe.run(sketch, os.path.join(
+                WORK, f"front_{int(on)}_{int(no_intermediate)}"),
+                no_intermediate=no_intermediate)
+            ms = (time.perf_counter() - t0) * 1e3
+            syncs[on] = pipe.sync_count - before
+            counts[on] = _delta(_kernels.launch_counts(), {})
+            if i:
+                times[on].append(ms)
+        for name, want in EXPECTED_LAUNCHES.items():
+            if counts[True].get(name, 0) != want:
+                raise AssertionError(f"device front ({mode}): {name} "
+                                     f"launched {counts[True].get(name, 0)} "
+                                     f"times, expected {want}")
+        if counts[True] != counts[False]:
+            raise AssertionError(f"device front ({mode}): launches "
+                                 f"{counts[True]} with it, {counts[False]} "
+                                 f"without")
+        if syncs[True] != syncs[False] - 1:
+            raise AssertionError(f"device front ({mode}): {syncs[True]} "
+                                 f"read-back waits with it, {syncs[False]} "
+                                 f"without (one fewer expected)")
+        _same_final_outputs(dirs[False], dirs[True], mode)
+    p50 = {on: statistics.median(times[on]) for on in times}
+    log(f"  device front {mode} [{card}]: p50 over {TIMED_RUNS} pairs in "
+        f"turns, off {p50[False]:.1f} ms, on {p50[True]:.1f} ms (runs off "
+        f"{[round(t, 1) for t in times[False]]}, on "
+        f"{[round(t, 1) for t in times[True]]}); read-back waits per run "
+        f"off {syncs[False]}, on {syncs[True]}; launches exact and equal "
+        f"{counts[True]}; bboxes_final.json and masks_final/ equal")
+    for on in (False, True):
+        pipe.cfg = dataclasses.replace(cfg, device_front=on)
+        prof = device_profile(lambda: (pipe.run(
+            sketch, os.path.join(WORK, "front_traced"),
+            no_intermediate=no_intermediate), torch.cuda.synchronize()))
+        log(f"  traced run, device front {'on' if on else 'off'}, {mode} "
+            f"[{card}]: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['busy_ms']:.1f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; "
+            "stages " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                  for k, v in pipe.stage_times.items())
+            + " ms")
+    pipe.cfg = cfg
+    return {"p50_ms": p50, "launches": counts[True], "syncs": syncs}
+
+
+def _same_final_outputs(off_dir: str, on_dir: str, mode: str) -> None:
+    """bboxes_final.json and every masks_final/ PNG of the two runs equal;
+    where they are not, the row and both values are printed and the phase
+    fails."""
+    with open(os.path.join(off_dir, "bboxes_final.json")) as f:
+        off = json.load(f)
+    with open(os.path.join(on_dir, "bboxes_final.json")) as f:
+        on = json.load(f)
+    if off != on:
+        for key in sorted(set(off) | set(on)):
+            a, b = off.get(key), on.get(key)
+            if a != b:
+                log(f"  device front ({mode}): bboxes_final.json[{key!r}] off "
+                    f"{a} on {b}")
+        raise AssertionError(f"device front ({mode}): bboxes_final.json "
+                             f"differs")
+    names_off = sorted(os.listdir(os.path.join(off_dir, "masks_final")))
+    names_on = sorted(os.listdir(os.path.join(on_dir, "masks_final")))
+    if names_off != names_on:
+        raise AssertionError(f"device front ({mode}): masks_final off "
+                             f"{names_off}, on {names_on}")
+    a = _read_masks(off_dir, "masks_final")
+    b = _read_masks(on_dir, "masks_final")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            ys, xs = np.nonzero(x != y)
+            log(f"  device front ({mode}): mask_{i}.png differs in "
+                f"{len(ys)} pixels, first at row {ys[0]} col {xs[0]}: off "
+                f"{bool(x[ys[0], xs[0]])} on {bool(y[ys[0], xs[0]])}")
+            raise AssertionError(f"device front ({mode}): masks_final "
+                                 f"differ")
+
+
+def _front_alone(card: str, pipe, sketch: str) -> None:
+    """The device front's own cost: one call on the arguments a run gave
+    it, traced (its eager greedy scan: K steps of a few launches)."""
+    import torch
+
+    from inklayer_tpu_torch.pipeline import runner
+    from inklayer_tpu_torch.pipeline.refine import front, nms
+    from inklayer_tpu_torch.profiling import device_profile
+
+    seen = []
+
+    def keep_args(*args, **kw):
+        seen.append((args, kw))
+        return front.nms_depth_front_device(*args, **kw)
+
+    cfg = pipe.cfg
+    runner.nms_depth_front_device = keep_args
+    pipe.cfg = dataclasses.replace(cfg, device_front=True)
+    try:
+        pipe.run(sketch, os.path.join(WORK, "front_args"),
+                 no_intermediate=True)
+    finally:
+        runner.nms_depth_front_device = front.nms_depth_front_device
+        pipe.cfg = cfg
+    args, kw = seen[0]
+    fn = lambda: (front.nms_depth_front_device(*args, **kw),
+                  torch.cuda.synchronize())
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(fn)
+    valid, gate, bb, order = front.device_prefilter_gates(
+        args[0], args[1], args[3], args[5], args[6].nms_max_area_frac,
+        args[6].nms_max_contained, args[6].nms_eps_px_per_kdiag,
+        kw["box_threshold"])
+    iou = torch.rand(len(order), len(order), device="cuda")
+    scan = lambda: (nms.greedy_nms(iou, gate, bb, order, 0.5, 0.7),
+                    torch.cuda.synchronize())
+    scan()
+    scan_prof = device_profile(scan)
+    log(f"  nms_depth_front_device alone at K {len(order)} [{card}]: "
+        f"{wall:.1f} ms wall, {prof['device_ops']} device ops, device busy "
+        f"{prof['busy_ms']:.2f} ms; its greedy scan alone "
+        f"{scan_prof['wall_ms']:.1f} ms traced wall, "
+        f"{scan_prof['device_ops']} device ops, busy "
+        f"{scan_prof['busy_ms']:.2f} ms")
+
+
+def _check_amg_records(records, hw, what: str) -> None:
+    from inklayer_tpu_torch.models.sam.amg import rle_to_mask
+
+    keys = {"segmentation", "rle", "area", "bbox", "bbox_xyxy", "crop_box",
+            "predicted_iou", "stability_score", "point_coords"}
+    h, w = hw
+    for i, r in enumerate(records):
+        if set(r) != keys:
+            raise AssertionError(f"{what}: record {i} keys {sorted(r)}")
+        seg = r["segmentation"]
+        if seg.shape != (h, w) or seg.dtype != bool:
+            raise AssertionError(f"{what}: record {i} segmentation "
+                                 f"{seg.shape} {seg.dtype}")
+        if not np.array_equal(rle_to_mask(r["rle"]), seg):
+            raise AssertionError(f"{what}: record {i}: rle_to_mask(rle) is "
+                                 f"not the segmentation")
+        x0, y0, x1, y1 = r["bbox_xyxy"]
+        if not (0 <= x0 <= x1 <= w and 0 <= y0 <= y1 <= h):
+            raise AssertionError(f"{what}: record {i} box {r['bbox_xyxy']} "
+                                 f"outside the {w} x {h} image")
+        if r["area"] != int(seg.sum()) or not np.isfinite(
+                [r["predicted_iou"], r["stability_score"]]).all():
+            raise AssertionError(f"{what}: record {i} area or scores")
+
+
+def _amg_call(card: str, amg, image, what: str, want: dict,
+              timed: bool) -> tuple:
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+
+    _kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = amg.generate(image)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _delta(_kernels.launch_counts(), {})
+    if counts != want:
+        raise AssertionError(f"{what}: launched {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if timed:
+        log(f"  {what} [{card}]: {ms:.1f} ms per call, {len(records)} "
+            f"records, {amg.last_survivors} survivors of the IoU and "
+            f"stability filters before NMS, peak memory allocated "
+            f"{peak:.2f} GiB; launches exact {counts}")
+    return records, counts
+
+
+def phase_prompts(card: str) -> dict:
+    """The device NMS front against the host front (both run modes), the
+    automatic mask generator at the reference defaults and with every
+    stage exercised, point and mask prompts through the predictor, and
+    the mmdetection route's producer."""
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.build import build_pipeline
+    from inklayer_tpu_torch.models.sam.amg import SamAutomaticMaskGenerator
+
+    cfg = slice_config()
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    sketch = os.path.join(WORK, "sketch750.png")
+    draw_sketch(sketch)
+    total = {}
+    for no_intermediate in (False, True):
+        res = _front_pairs(card, pipe, cfg, sketch, no_intermediate)
+        _add_counts(total, res["launches"], 2)
+    _front_alone(card, pipe, sketch)
+    log(f"  the device front: {time.perf_counter() - t0:.1f} s (build "
+        f"included)")
+    t0 = time.perf_counter()
+
+    image = np.array(Image.open(sketch).convert("RGB"))
+    amg = SamAutomaticMaskGenerator(pipe.sam)  # 32 per side, 64 a batch
+    want = sam_launches(1, 32 * 32 // 64)
+    _amg_call(card, amg, image, "AMG defaults (warm-up)", want, False)
+    records, counts = _amg_call(card, amg, image,
+                                "AMG at the reference defaults, 32 per side",
+                                want, True)
+    _check_amg_records(records, image.shape[:2], "AMG defaults")
+    _add_counts(total, counts)
+    amg = SamAutomaticMaskGenerator(
+        pipe.sam, points_per_side=16, crop_n_layers=1,
+        pred_iou_thresh=-float("inf"), stability_score_thresh=0.0)
+    want = sam_launches(5, 5 * 16 * 16 // 64)
+    records, counts = _amg_call(
+        card, amg, image, "AMG 16 per side, crop_n_layers 1, open thresholds",
+        want, True)
+    if not records:
+        raise AssertionError("AMG with open thresholds made no record")
+    _check_amg_records(records, image.shape[:2], "AMG crop_n_layers 1")
+    _add_counts(total, counts)
+
+    # points, multimask, then a mask prompt from the first decode
+    sam = pipe.sam
+    _kernels.reset_launch_counts()
+    sam.set_image(image)
+    coords = np.asarray([[[200.0, 210.0]], [[500.0, 560.0]], [[700.0, 30.0]]])
+    labels = np.ones((3, 1), np.int64)
+    masks, iou, low = sam.predict(point_coords=coords, point_labels=labels,
+                                  multimask_output=True)
+    counts = _delta(_kernels.launch_counts(), {})
+    if counts != sam_launches(1, 1):
+        raise AssertionError(f"set_image + point predict launched {counts}, "
+                             f"expected {sam_launches(1, 1)}")
+    if masks.shape != (3, 3) + image.shape[:2] \
+            or not np.isfinite(iou).all() \
+            or iou.shape != (3, 3):
+        raise AssertionError(f"point predict: masks {masks.shape}, iou "
+                             f"{iou}")
+    _add_counts(total, counts)
+    _kernels.reset_launch_counts()
+    m2, iou2, low2 = sam.predict(point_coords=coords, point_labels=labels,
+                                 mask_input=low[:, 0])
+    counts = _delta(_kernels.launch_counts(), {})
+    want = _delta({"layernorm": sam_layernorm_launches(0, 1,
+                                                       mask_prompts=1)}, {})
+    if counts != want:
+        raise AssertionError(f"mask-prompt decode launched {counts}, "
+                             f"expected {want}")
+    if m2.shape != (3,) + image.shape[:2] or not (np.isfinite(iou2).all()
+                                         and np.isfinite(low2).all()):
+        raise AssertionError("mask-prompt decode is not finite")
+    _add_counts(total, counts)
+    log(f"  SamPredictor.set_image + predict (3 points, multimask) [{card}]: "
+        f"masks {masks.shape}, iou finite, launches exact; mask-prompt "
+        f"decode: masks {m2.shape}, finite, launches {counts} (LN(16) over "
+        f"64 x 64^2 rows included); AMG and prompts "
+        f"{time.perf_counter() - t0:.1f} s")
+    del pipe, sam, amg
+    torch.cuda.empty_cache()
+
+    # the mmdetection route's producer, as its users call it
+    out = os.path.join(WORK, "mmdet_out")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m",
+                    "inklayer_tpu_torch.pipeline.mmdet_route", "--img",
+                    sketch, "--nouns", "cat", "dog", "--out_dir", out],
+                   cwd=REPO, check=True)
+    with open(os.path.join(out, "sketch750.json")) as f:
+        data = json.load(f)
+    if set(data) != {"bboxes", "labels", "scores", "model_info"} or set(
+            data["model_info"]) != {"model_config", "weights", "device",
+                                    "score_threshold", "time"}:
+        raise AssertionError(f"mmdet_out/sketch750.json keys {sorted(data)}")
+    if sorted(os.listdir(out)) != ["input_image.png", "pred.png",
+                                   "sketch750.json"]:
+        raise AssertionError(f"mmdet_out holds {sorted(os.listdir(out))}")
+    log(f"  python -m inklayer_tpu_torch.pipeline.mmdet_route: "
+        f"{time.perf_counter() - t0:.1f} s (start and build included), "
+        f"{len(data['bboxes'])} boxes, model_info {data['model_info']}")
+    return {"launches": total}
+
+
 
 def ptxas_entries(log_text: str) -> dict:
     """{mangled kernel name: {"regs", "stack", "spill_stores", "spill_loads",
@@ -2212,6 +2568,12 @@ def main() -> int:
     sdxl_res = phase_sdxl(card)
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 10: the device front, prompts, AMG, the mmdet producer "
+        f"[{card}]")
+    t0 = time.perf_counter()
+    prompts_res = phase_prompts(card)
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -2221,8 +2583,8 @@ def main() -> int:
             # ms, plain_ms, bound_ms, library_ms: sums over the phase-2
             # cases; launches: the last timed runs of phases 3 and 5, the
             # serving run of phase 6, the timed sweeps of phase 7, the
-            # convolution's entry point (phase 8) and the timed generate
-            # of phase 9
+            # convolution's entry point (phase 8), the timed generate
+            # of phase 9 and phase 10's checked runs and calls
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
@@ -2230,7 +2592,8 @@ def main() -> int:
             + serve_res["launches"].get(name, 0)
             + sweep_res["launches"].get(name, 0)
             + conv_counts.get(name, 0)
-            + sdxl_res["launches"].get(name, 0),
+            + sdxl_res["launches"].get(name, 0)
+            + prompts_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

@@ -6,8 +6,7 @@ same field names and defaults, so a JSON file written by the JAX package's
 ``save_config`` loads here too.  Sections of stages that are not ported
 yet (parallel) and top-level options the port does not read (among them
 ``inpaint``, which neither package reads: the CLI flag decides) are
-ignored on load.  An option that would change what the port computes and
-that it does not have raises instead: ``device_front: true``.
+ignored on load.
 """
 
 from __future__ import annotations
@@ -201,18 +200,18 @@ class PipelineConfig:
     # stage's eager loops share one interpreter lock.  So the port runs
     # one (ROADMAP section 3).
     sweep_workers: int = 1
+    # queue the masks over the whole top-K capacity, their cleaning and the
+    # device NMS front before the detect read-back, and read the detection
+    # and the front back together (pipeline/refine/front.py
+    # nms_depth_front_device).  Off by default, as in the JAX package; a
+    # default for the card waits for a measured cell (ROADMAP section 1).
+    device_front: bool = False
 
 
 def _from_jsonable(cls: type, data: dict) -> Any:
     """Rebuild a dataclass from ``json.load`` output: nested sections
     recurse, lists become tuples, unknown keys are ignored."""
     kwargs = {}
-    if cls is PipelineConfig and data.get("device_front"):
-        # refused, not run without it: the port has no device NMS front
-        raise NotImplementedError(
-            f"config device_front={data['device_front']!r}: the device NMS "
-            f"front (front.py:127) is not ported (ROADMAP.md section 1, "
-            f"item 6)")
     types = {f.name: f.type for f in dataclasses.fields(cls)}
     for name, value in data.items():
         if name not in types:

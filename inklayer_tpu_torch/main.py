@@ -5,14 +5,15 @@
                                       [--no_intermediate] [--inpaint]
                                       [--models_dir DIR] [--batch N]
                                       [--num_hosts N --host_id I]
-                                      [--device cuda]
+                                      [--device cuda] [--cpu]
 
 Same input flags as the JAX package's ``main.py``: the default run, and
 with ``--inpaint`` the layer completion (SD1.5-inpaint + ControlNet).  It
 runs on the card unless ``--device cpu`` is given.  More than one image
 (``--dir``) goes through the directory sweep (``InkLayerPipeline.run_dir``:
 ``cfg.sweep_workers`` workers; ``--batch N`` runs detection and SAM's
-encoder over N images at a time).  ``--num_hosts``/``--host_id`` (default
+encoder over N images at a time).  ``--cpu`` is the JAX CLI's flag: it
+forces the CPU, whatever ``--device`` says.  ``--num_hosts``/``--host_id`` (default
 ``$INKLAYER_NUM_HOSTS``/``$INKLAYER_HOST_ID``) split the sorted inputs
 round-robin over several machines without any communication: host I takes
 ``paths[I::N]``.  ``--models_dir`` holds
@@ -54,7 +55,12 @@ def main(argv=None):
                         default=int(os.environ.get("INKLAYER_HOST_ID", 0)),
                         help="this machine's index in [0, num_hosts)")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--cpu", action="store_true",
+                        help="force the CPU (the JAX CLI's flag); overrides "
+                             "--device")
     args = parser.parse_args(argv)
+    if args.cpu:
+        args.device = "cpu"
 
     if args.img is None and args.dir is None:
         parser.error("provide --img or --dir")

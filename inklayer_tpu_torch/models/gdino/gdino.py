@@ -26,6 +26,7 @@ from inklayer_tpu_torch.models.gdino.transformer import (GDinoTransformer,
                                                          sine_pos_embed_hw)
 from inklayer_tpu_torch.nn.layers import (MLPBlock, group_norm_nhwc,
                                           resize_pad_mask)
+from inklayer_tpu_torch.ops.bits import readback
 from inklayer_tpu_torch.ops.image import (pick_bucket, resize_scale,
                                           scale_pad_normalize)
 
@@ -152,7 +153,6 @@ class GDinoDetector:
         pad_mask[:vh, :vw] = False
         return bucket, pre, pad_mask
 
-    @torch.inference_mode()
     def detect_device(self, image: torch.Tensor,
                       caption: Optional[str] = None,
                       box_threshold: Optional[float] = None):
@@ -161,6 +161,27 @@ class GDinoDetector:
         device; ``finalize()`` reads them back and thresholds.  Top-K is
         score-sorted, so the detections above the threshold are a PREFIX
         of the device tensors (the runner chains SAM decode on them)."""
+        parts, finalize_host, scores, boxes = self.detect_device_parts(
+            image, caption, box_threshold)
+
+        def finalize():
+            return finalize_host(readback(parts)())
+
+        return finalize, scores, boxes
+
+    @torch.inference_mode()
+    def detect_device_parts(self, image: torch.Tensor,
+                            caption: Optional[str] = None,
+                            box_threshold: Optional[float] = None):
+        """The lowest-level detect (the JAX package's
+        ``detect_dispatch_device_parts``): returns (parts, finalize_host,
+        scores (K,), boxes (K, 4)), where ``parts`` is the device tuple
+        (scores, boxes, token probabilities, token ids) that the caller
+        reads back with its own other results
+        (:func:`inklayer_tpu_torch.ops.bits.readback`) and
+        ``finalize_host`` turns the host arrays into the :meth:`detect`
+        dict.  The runner's device front reads the detection back together
+        with the NMS front this way."""
         c = self.cfg
         cap = self._caption(caption)
         thresh = c.box_threshold if box_threshold is None else box_threshold
@@ -169,15 +190,15 @@ class GDinoDetector:
         logits, boxes = self.model(pre[None], pad_mask[None], ids, attn, pos)
         scores, top_boxes, tok_probs = top_detections(logits, boxes,
                                                       c.max_boxes)
+        # numpy holds no bf16: widen on the device, as the host path did
+        parts = (scores[0].float(), top_boxes[0].double(),
+                 tok_probs[0].float(), ids[0])
 
-        def finalize():
-            return self._threshold(
-                scores[0].float().cpu().numpy(),
-                top_boxes[0].double().cpu().numpy(),
-                tok_probs[0].float().cpu().numpy(), ids[0].cpu().numpy(),
-                cap, thresh)
+        def finalize_host(host_parts):
+            s, b, tl, i = host_parts
+            return self._threshold(s, b, tl, i, cap, thresh)
 
-        return finalize, scores[0], top_boxes[0]
+        return parts, finalize_host, scores[0], top_boxes[0]
 
     @torch.inference_mode()
     def detect_batch(self, images, caption: Optional[str] = None,

@@ -124,9 +124,11 @@ class MaskDecoder(nn.Module):
                                             iou_head_depth)
 
     def forward(self, image_embeddings, image_pe, sparse_prompt_embeddings,
-                dense_prompt_embeddings) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, H, W, C) embeddings -> (masks (B, 1, 4H, 4W) logits,
-        iou_pred (B, 1)), single-mask output."""
+                dense_prompt_embeddings, multimask_output: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, H, W, C) embeddings -> (masks (B, M, 4H, 4W) fp32 logits,
+        iou_pred (B, M)): the single mask (M = 1), or with
+        ``multimask_output`` the other three (M = 3)."""
         b = sparse_prompt_embeddings.shape[0]
         dt = image_embeddings.dtype
         output_tokens = torch.cat([self.iou_token.weight,
@@ -149,4 +151,6 @@ class MaskDecoder(nn.Module):
         masks = torch.einsum("bmc,bhwc->bmhw", hyper_in.float(),
                              upscaled.float())
         iou_pred = self.iou_prediction_head(iou_token_out)
+        if multimask_output:
+            return masks[:, 1:], iou_pred[:, 1:]
         return masks[:, 0:1], iou_pred[:, 0:1]

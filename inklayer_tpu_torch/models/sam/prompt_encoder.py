@@ -1,38 +1,26 @@
-"""SAM prompt encoder, box prompts (port of
-:mod:`inklayer_tpu.models.sam.prompt_encoder`).
+"""SAM prompt encoder: points, boxes and masks -> sparse and dense
+embeddings (port of :mod:`inklayer_tpu.models.sam.prompt_encoder`).
 
-Box prompts are the only prompts the pipeline sends.  Point and mask
-prompts are not ported yet.  The mask-prompt convnet
-(``mask_downscaling.*``, reference prompt_encoder.py) is held all the same,
-so that a reference SAM checkpoint loads strictly; the box path does not
-run it.  (The JAX package maps those keys and drops them: its parameter
-tree holds only what the box path uses.)
+The pipeline sends box prompts; the automatic mask generator sends points
+(:mod:`inklayer_tpu_torch.models.sam.amg`), and
+:meth:`inklayer_tpu_torch.models.sam.SamPredictor.predict` takes all
+three.  The mask-prompt convnet (checkpoint keys ``mask_downscaling.*``)
+takes NHWC (B, 4H, 4W, 1) low-res logits, as the JAX package does; its two
+LayerNorms follow the port's LayerNorm rule (:class:`LayerNorm`: C % 8 ==
+0 and >= 512 rows launch the kernel), so LN(16) over B x 64^2 rows
+launches it and LN(4) takes the plain version.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-
-class LayerNorm2d(nn.Module):
-    """LayerNorm over the channels of an NCHW map (reference
-    common.py LayerNorm2d)."""
-
-    def __init__(self, channels: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        u = x.mean(1, keepdim=True)
-        s = (x - u).pow(2).mean(1, keepdim=True)
-        x = (x - u) / torch.sqrt(s + self.eps)
-        return self.weight[:, None, None] * x + self.bias[:, None, None]
+from inklayer_tpu_torch.nn.layers import LayerNorm
 
 
 class PositionEmbeddingRandom(nn.Module):
@@ -74,32 +62,81 @@ class PromptEncoder(nn.Module):
             nn.Embedding(1, embed_dim) for _ in range(4))
         self.not_a_point_embed = nn.Embedding(1, embed_dim)
         self.no_mask_embed = nn.Embedding(1, embed_dim)
-        # mask prompts (not ported): checkpoint keys mask_downscaling.{0,1,3,4,6}
-        # (the reference's mask_in_chans = 16)
+        # checkpoint keys mask_downscaling.{0,1,3,4,6} (the reference's
+        # mask_in_chans = 16; 2 and 5 are the GELUs)
         self.mask_downscaling = nn.Sequential(
-            nn.Conv2d(1, 4, kernel_size=2, stride=2), LayerNorm2d(4),
+            nn.Conv2d(1, 4, kernel_size=2, stride=2), LayerNorm(4),
             nn.GELU(), nn.Conv2d(4, 16, kernel_size=2, stride=2),
-            LayerNorm2d(16), nn.GELU(), nn.Conv2d(16, embed_dim, kernel_size=1))
+            LayerNorm(16), nn.GELU(), nn.Conv2d(16, embed_dim, kernel_size=1))
 
     def get_dense_pe(self) -> torch.Tensor:
         """(1, H, W, embed_dim) PE of the embedding grid."""
         return self.pe_layer.grid(self.image_embedding_size)[None]
 
+    def _embed_coords(self, coords: torch.Tensor) -> torch.Tensor:
+        """Model-space pixel coordinates (..., 2) -> PE, normalised by the
+        input image size."""
+        h, w = self.input_image_size
+        return self.pe_layer(coords.float() / torch.tensor(
+            [w, h], dtype=torch.float32, device=coords.device))
+
+    def embed_points(self, points: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+        """points: (B, N, 2) model-space pixel xy (the +0.5 pixel-centre
+        shift is applied here); labels: (B, N), -1 pad, 0 negative, 1
+        positive -> (B, N, embed_dim) fp32."""
+        pe = self._embed_coords(points.float() + 0.5)
+        pad = (labels == -1)[..., None]
+        pe = torch.where(pad, 0.0, pe)
+        for mask, emb in ((pad, self.not_a_point_embed),
+                          ((labels == 0)[..., None], self.point_embeddings[0]),
+                          ((labels == 1)[..., None], self.point_embeddings[1])):
+            pe = pe + torch.where(mask, emb.weight.float(), 0.0)
+        return pe
+
     def embed_boxes(self, boxes: torch.Tensor) -> torch.Tensor:
         """boxes: (B, 4) xyxy model-space pixels -> (B, 2, embed_dim)."""
-        h, w = self.input_image_size
-        corners = boxes.float().reshape(-1, 2, 2) + 0.5
-        norm = corners / torch.tensor([w, h], dtype=torch.float32,
-                                      device=boxes.device)
-        pe = self.pe_layer(norm)
+        pe = self._embed_coords(boxes.float().reshape(-1, 2, 2) + 0.5)
         return torch.stack([
             pe[:, 0] + self.point_embeddings[2].weight[0].float(),
             pe[:, 1] + self.point_embeddings[3].weight[0].float()], dim=1)
 
-    def forward(self, boxes: torch.Tensor):
-        """Returns (sparse (B, 2, C), dense (B, H, W, C)) for box prompts."""
-        batch = boxes.shape[0]
+    def embed_masks(self, masks: torch.Tensor) -> torch.Tensor:
+        """masks: (B, 4H, 4W, 1) -> (B, H, W, embed_dim) in the model's
+        dtype: conv 2x2/2 -> LN(4) -> GELU -> conv 2x2/2 -> LN(16) -> GELU
+        -> conv 1x1; the convolutions on NCHW views, the norms on NHWC."""
+        conv1, ln1, _, conv2, ln2, _, conv3 = self.mask_downscaling
+        x = masks.to(conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = F.gelu(ln1(conv1(x).permute(0, 2, 3, 1)))
+        x = F.gelu(ln2(conv2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)))
+        return conv3(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def no_mask_dense(self, batch: int) -> torch.Tensor:
+        """(batch, H, W, embed_dim): the no-mask embedding everywhere."""
         h, w = self.image_embedding_size
-        dense = self.no_mask_embed.weight.reshape(1, 1, 1, -1).expand(
+        return self.no_mask_embed.weight.reshape(1, 1, 1, -1).expand(
             batch, h, w, self.embed_dim)
-        return self.embed_boxes(boxes), dense
+
+    def forward(self, boxes: Optional[torch.Tensor] = None,
+                points: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                masks: Optional[torch.Tensor] = None):
+        """Returns (sparse (B, N, C) fp32, dense (B, H, W, C)).  ``points``
+        is (coords (B, N, 2), labels (B, N)); the sparse prompts are the
+        points' embeddings, then the boxes', as in the JAX package.  The
+        batch is the number of prompts.  Boxes come first in the signature
+        so that the box-only call ``prompt_encoder(boxes)`` stays; keyword
+        calls read as the JAX package's."""
+        parts = []
+        batch = 1 if masks is None else masks.shape[0]
+        if points is not None:
+            batch = points[0].shape[0]
+            parts.append(self.embed_points(*points))
+        if boxes is not None:
+            batch = boxes.shape[0]
+            parts.append(self.embed_boxes(boxes))
+        dev = self.no_mask_embed.weight.device
+        sparse = (torch.cat(parts, dim=1) if parts else
+                  torch.zeros(batch, 0, self.embed_dim, device=dev))
+        dense = (self.embed_masks(masks) if masks is not None
+                 else self.no_mask_dense(batch))
+        return sparse, dense

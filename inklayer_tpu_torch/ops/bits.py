@@ -12,6 +12,8 @@ and a writer thread waits for it without blocking on whatever the run
 enqueues next.  On the CPU the same functions hand back the tensors'
 memory.  ``masks_to_host``, ``disjoint_masks_to_host`` and
 ``batched_final_readback`` are the blocking forms the JAX package has.
+:func:`masks_to_device` is the upload: ``np.packbits`` rows, unpacked
+where they land.
 """
 
 from __future__ import annotations
@@ -164,3 +166,26 @@ def final_readback(stacks: Sequence[torch.Tensor],
 def batched_final_readback(stacks, arrays=(), with_labels=False):
     """The blocking form of :func:`final_readback`."""
     return final_readback(stacks, arrays, with_labels)()
+
+
+def masks_to_device(masks: np.ndarray, device) -> torch.Tensor:
+    """Host (..., H, W) bool -> (..., H, W) bool on ``device`` through a
+    packed upload (``np.packbits`` rows, 8 pixels a byte; any width), as
+    :func:`inklayer_tpu.ops.bits.masks_to_device`."""
+    masks = np.asarray(masks, bool)
+    if masks.size == 0:
+        return torch.zeros(masks.shape, dtype=torch.bool, device=device)
+    w = masks.shape[-1]
+    packed = torch.from_numpy(np.packbits(masks, axis=-1))
+    if torch.device(device).type == "cuda":
+        packed = packed.pin_memory()
+    return unpack_bits(packed.to(device, non_blocking=True), w)
+
+
+def unpack_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., ceil(W/8)) uint8 -> (..., W) bool where ``packed`` lies (the
+    inverse of :func:`pack_bits`)."""
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8,
+                           device=packed.device)
+    bits = (packed[..., None] & weights) > 0
+    return bits.reshape(*packed.shape[:-1], -1)[..., :width].contiguous()

@@ -138,9 +138,10 @@ def greedy_nms(sketch_iou: torch.Tensor, gate: torch.Tensor,
     k = order.shape[0]
     s_ov = torch.where(gate, sketch_iou, 0.0)[order][:, order]
     b_ov = bbox_ov.float()[order][:, order]
-    sup = (s_ov > thr_s) | (b_ov > thr_b)
     idx = torch.arange(k, device=order.device)
+    # sup[pi] & (idx > pi), for every pi at once: 3 launches per step left
+    later = ((s_ov > thr_s) | (b_ov > thr_b)) & (idx[None, :] > idx[:, None])
     keep = torch.ones(k, dtype=torch.bool, device=order.device)
     for pi in range(k):
-        keep = keep & ~(sup[pi] & (idx > pi) & keep[pi])
+        keep = keep & ~(later[pi] & keep[pi])
     return keep

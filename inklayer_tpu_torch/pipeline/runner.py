@@ -1,6 +1,6 @@
 """Pipeline orchestrator: the default run, the inpainting stage and the
 directory sweep (port of :mod:`inklayer_tpu.pipeline.runner`,
-``InkLayerPipeline.run`` and ``run_dir``, with ``device_front=False``).
+``InkLayerPipeline.run`` and ``run_dir``).
 
 GroundingDINO detect -> the top-K boxes chained into SAM's box-prompted
 decode -> full-resolution masks -> mask cleaning -> the host NMS prefilter
@@ -19,6 +19,15 @@ holds ``mmdet_out/*.json`` (the mmdetection alt route's boxes, written
 after the directory is prepared), its boxes and scores replace
 GroundingDINO's before NMS, while the masks still come from
 GroundingDINO's boxes, as in the JAX runner.
+
+With ``PipelineConfig.device_front`` the masks are made and cleaned over
+the whole top-K capacity and the NMS + depth-stat front runs from the
+device boxes and scores
+(:func:`inklayer_tpu_torch.pipeline.refine.front.nms_depth_front_device`),
+all queued before the detection is read back; the detection and the front
+then come back in one read-back, and no subset masks are made.  The
+mmdetection route and the batched prefill's host boxes turn it off for
+that run.
 
 Masks, depth and the refine stack stay on the model's device.  The host
 writes on two writer threads: each stack is read back by a non-blocking
@@ -64,7 +73,8 @@ from inklayer_tpu_torch.ops.color import (color_sketch_by_label_map,
                                           mask_label_map)
 from inklayer_tpu_torch.pipeline.refine.depth_sort import (containment_graph,
                                                            sort_order)
-from inklayer_tpu_torch.pipeline.refine.front import nms_depth_front
+from inklayer_tpu_torch.pipeline.refine.front import (nms_depth_front,
+                                                      nms_depth_front_device)
 from inklayer_tpu_torch.pipeline.refine.mask_cleaner import clean_masks_device
 from inklayer_tpu_torch.pipeline.refine.nms import nms_host_prefilter
 from inklayer_tpu_torch.pipeline.refine.refiner import (
@@ -284,8 +294,12 @@ class InkLayerPipeline:
                         host = (fut.result() if fut is not None
                                 else decode_image(nxt))
                         dev_next = upload(host[0], self.device)
-                        self._det_cache[nxt] = self.detector.detect_device(
-                            dev_next)
+                        # JAX runner.py:341-346: the parts, for the fused
+                        # read-back of the device front
+                        detect = (self.detector.detect_device_parts
+                                  if self.cfg.device_front
+                                  else self.detector.detect_device)
+                        self._det_cache[nxt] = detect(dev_next)
                         self._sam_state_cache[nxt] = \
                             self.sam.compute_image_state(dev_next)
                         self._depth_cache[nxt] = \
@@ -362,14 +376,20 @@ class InkLayerPipeline:
 
         # detect; the top-K boxes stay on the device and chain into the SAM
         # decode (the surviving detections are a score-sorted prefix).  The
-        # sweep may have run it: the lookahead leaves the device triple, the
-        # batched prefill a host dict (then there are no device boxes).
+        # sweep may have run it: the lookahead leaves the device triple (or
+        # the parts, with the device front), the batched prefill a host
+        # dict (then there are no device boxes).  With the device front the
+        # read-back waits to join the front's (JAX runner.py:450-470).
         det = self._det_cache.pop(input_path, None)
-        boxes_dev = None
-        if det is None:
-            det, _scores, boxes_dev = self.detector.detect_device(image_dev)
+        boxes_dev = scores_dev = det_parts = det_finalize = None
+        if det is None and cfg.device_front:
+            det = self.detector.detect_device_parts(image_dev)
+        elif det is None:
+            det = self.detector.detect_device(image_dev)
+        if isinstance(det, tuple) and len(det) == 4:
+            det_parts, det_finalize, scores_dev, boxes_dev = det
         elif isinstance(det, tuple):
-            det, _scores, boxes_dev = det
+            det, scores_dev, boxes_dev = det
         t0 = self._stage("detect", t0)
         state = self._sam_state_cache.pop(input_path, None)
         if state is None:
@@ -389,7 +409,29 @@ class InkLayerPipeline:
             depth = self.depth.infer_image_device(image_dev)
         depth_u8 = quantize_depth(depth)
         t0 = self._stage("depth", t0)
-        if callable(det):
+
+        # the device front (JAX runner.py:510-530): masks over the whole
+        # top-K capacity, cleaned, then the prefilter, gates, NMS scan and
+        # depth stats from the device boxes, all queued before the
+        # detection is read back; rows stay in top-K index space
+        front = front_host = cleaned = None
+        if lowres is not None and cfg.device_front:
+            masks_dev = self.sam.masks_from_lowres(state, lowres,
+                                                   int(lowres.shape[0]))
+            t0 = self._stage("segment", t0)
+            cleaned, _capped = clean_masks_device(masks_dev, rcfg)
+            t0 = self._stage("clean", t0)
+            front = nms_depth_front_device(
+                boxes_dev, scores_dev, cleaned, gray_dev, depth, (h, w),
+                rcfg, box_threshold=self.detector.cfg.box_threshold)
+            t0 = self._stage("nms", t0)
+        if det_parts is not None:
+            # one read-back for the detection and the front together
+            # (JAX runner.py:534-545)
+            self._count_sync()
+            host = readback(list(det_parts) + list(front or ()))()
+            det, front_host = det_finalize(host[:4]), host[4:]
+        elif callable(det):
             self._count_sync()
             det = det()
         t0 = self._stage("detect", t0)
@@ -417,10 +459,15 @@ class InkLayerPipeline:
 
         # --no_intermediate with the chained decode: masks/ and
         # masks_cleaned/ are never written and NMS and refine read only the
-        # prefilter survivors, so their masks are made after the prefilter
+        # prefilter survivors, so their masks are made after the prefilter;
+        # not with the device front, whose masks are made (JAX
+        # runner.py:589-593)
         n_det = len(boxes_abs)
-        subset = no_intermediate and lowres is not None and n_det > 0
-        if lowres is not None and n_det and not subset:
+        subset = (no_intermediate and lowres is not None and n_det > 0
+                  and front is None)
+        if front is not None:
+            pass  # the top-K capacity's masks, made above
+        elif lowres is not None and n_det and not subset:
             masks_dev = self.sam.masks_from_lowres(state, lowres, n_det)
         elif lowres is None and n_det:  # host boxes (batched prefill, mmdet)
             masks_dev, _iou = self.sam.predict_device_state(state, boxes_abs)
@@ -438,11 +485,12 @@ class InkLayerPipeline:
                                                       len(masks)))
 
         if not no_intermediate:
+            # the capacity's stack is cut to the detections (a prefix)
+            shown = masks_dev[:n_det]
             self._submit(write_sam_outputs, readback(
-                [pack_bits(masks_dev), mask_label_map(masks_dev)]))
+                [pack_bits(shown), mask_label_map(shown)]))
 
-        cleaned = None
-        if not subset:
+        if cleaned is None and not subset:
             cleaned, _capped = clean_masks_device(masks_dev, rcfg)
         t0 = self._stage("clean", t0)
 
@@ -452,7 +500,7 @@ class InkLayerPipeline:
                                   os.path.join(out_dir, "masks_cleaned"))
 
         if not no_intermediate:
-            self._submit(write_cleaned, masks_readback(cleaned))
+            self._submit(write_cleaned, masks_readback(cleaned[:n_det]))
 
         if mmdet_json:  # the alt route's boxes; the masks stay GDINO's
             with open(mmdet_json[0]) as f:
@@ -464,37 +512,47 @@ class InkLayerPipeline:
             xyxy_norm = boxes_abs / np.asarray([w, h, w, h]) \
                 if boxes_abs.size else boxes_abs
 
-        # sketch NMS: host prefilter + gates, then the NMS + depth-stat front
-        kept0, order0, gate, iou_bbox = nms_host_prefilter(
-            boxes_abs, scores, gray, rcfg)
-        k = len(kept0)
-        t0 = self._stage("nms", t0)
-        front_rows = kept0
-        if subset and k:
-            # masks and cleaning for the survivors only, padded to a pow2
-            # bucket; the cleaned rows are then in kept0-position space
-            bucket = 1
-            while bucket < k:
-                bucket *= 2
-            bucket = min(bucket, int(lowres.shape[0]))
-            sel = np.zeros((bucket,), np.int64)
-            sel[:k] = kept0
-            masks_dev = self.sam.masks_from_lowres(
-                state, lowres[upload(sel, dev)], bucket)
-            t0 = self._stage("segment", t0)
-            cleaned, _capped = clean_masks_device(masks_dev, rcfg)
-            t0 = self._stage("clean", t0)
-            front_rows = np.arange(k)
-        if k:
-            self._count_sync()
-            keep, dscores, doverlap = nms_depth_front(
-                front_rows, gate, iou_bbox, order0, cleaned, gray_dev, depth,
-                rcfg)
-            kept = kept0[order0[keep]]
-            pos = {int(o): i for i, o in enumerate(kept0)}
-            rows_of_kept = np.asarray([pos[int(i)] for i in kept], np.int64)
+        if front_host is not None:
+            # the device front's rows are in top-K index space, which is
+            # the detections' (JAX runner.py:662-670).  The JAX package
+            # then cuts the cleaning's cap flags to the detections
+            # (:823-827); the port's connected components have no cap.
+            valid, order, keep, dscores, doverlap = front_host
+            kept = rows_of_kept = order[keep & valid[order]].astype(np.int64)
         else:
-            kept = rows_of_kept = np.zeros((0,), np.int64)
+            # host prefilter + gates, then the NMS + depth-stat front
+            kept0, order0, gate, iou_bbox = nms_host_prefilter(
+                boxes_abs, scores, gray, rcfg)
+            k = len(kept0)
+            t0 = self._stage("nms", t0)
+            front_rows = kept0
+            if subset and k:
+                # masks and cleaning for the survivors only, padded to a
+                # pow2 bucket; the cleaned rows are then in kept0-position
+                # space
+                bucket = 1
+                while bucket < k:
+                    bucket *= 2
+                bucket = min(bucket, int(lowres.shape[0]))
+                sel = np.zeros((bucket,), np.int64)
+                sel[:k] = kept0
+                masks_dev = self.sam.masks_from_lowres(
+                    state, lowres[upload(sel, dev)], bucket)
+                t0 = self._stage("segment", t0)
+                cleaned, _capped = clean_masks_device(masks_dev, rcfg)
+                t0 = self._stage("clean", t0)
+                front_rows = np.arange(k)
+            if k:
+                self._count_sync()
+                keep, dscores, doverlap = nms_depth_front(
+                    front_rows, gate, iou_bbox, order0, cleaned, gray_dev,
+                    depth, rcfg)
+                kept = kept0[order0[keep]]
+                pos = {int(o): i for i, o in enumerate(kept0)}
+                rows_of_kept = np.asarray([pos[int(i)] for i in kept],
+                                          np.int64)
+            else:
+                kept = rows_of_kept = np.zeros((0,), np.int64)
         t0 = self._stage("nms", t0)
         final_norm = [xyxy_norm[i].tolist() for i in kept]
         final_data = {"bboxes": final_norm,

@@ -102,3 +102,19 @@ def test_readback_returns_each_tensor_in_order():
     a, b = wait()
     np.testing.assert_array_equal(a, np.arange(6).reshape(2, 3))
     np.testing.assert_array_equal(b, np.arange(6).reshape(2, 3).T)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(0, 16, 16), (2, 0, 5),
+                                            (3, 21, 37)])
+def test_masks_to_device_matches_jax(shape):
+    """The packed upload, widths that are and are not a multiple of 8 and
+    empty stacks: exactly the host masks and the JAX package's."""
+    m = _masks(shape, seed=4)
+    got = T.masks_to_device(m, "cpu")
+    assert got.dtype == torch.bool and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), m)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(J.masks_to_device(m)))
+    if m.size:  # the device unpack inverts pack_bits
+        np.testing.assert_array_equal(T.unpack_bits(
+            T.pack_bits(torch.from_numpy(m)), shape[-1]).numpy(), m)

@@ -592,3 +592,37 @@ def test_sdxl_generate_launches_its_kernels(gen):
     assert counts.get("flash_attention/d64", 0) == 10 * 2
     assert counts.get("layernorm", 0) == 3 * 22 * 2
     assert pipe.stage_times["steps"] == 2
+
+
+# the SAM mask prompt's LN(16): B x 64^2 rows of 16 channels (2 lanes a
+# row) at the decode batches of one prompt, a point batch and the default
+# run's capacity; and the whole mask convnet on the card against the CPU
+@pytest.mark.parametrize("b", [1, 4, 64])
+def test_layernorm_mask_prompt_shape(gen, b):
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn(gen, b * 4096, 16).to(dtype)
+        sc = (1 + _randn(gen, 16, std=0.1)).to(dtype)
+        bi = _randn(gen, 16, std=0.1).to(dtype)
+        before = _kernels.LAUNCHES["layernorm"]
+        got = norm.layernorm_2d(x, sc, bi)
+        assert _kernels.LAUNCHES["layernorm"] == before + 1
+        torch.testing.assert_close(
+            got.float(), norm.layernorm_2d_plain(*_f32([x, sc, bi])), **TOL)
+
+
+def test_mask_prompt_convnet_launches_layernorm_once(gen):
+    from inklayer_tpu_torch.models.sam.prompt_encoder import PromptEncoder
+
+    torch.manual_seed(0)
+    pe = PromptEncoder()
+    for p in pe.parameters():
+        p.data.normal_(0, 0.5)
+    masks = torch.randn(2, 256, 256, 1, generator=gen, device="cuda")
+    want = pe.embed_masks(masks.cpu())
+    pe = pe.cuda()
+    before = _kernels.LAUNCHES["layernorm"]
+    with torch.inference_mode():
+        got = pe.embed_masks(masks)
+    # LN(16) over 2 x 64^2 rows launches; LN(4) takes the plain version
+    assert _kernels.LAUNCHES["layernorm"] == before + 1
+    torch.testing.assert_close(got.cpu(), want.detach(), atol=1e-3, rtol=1e-3)

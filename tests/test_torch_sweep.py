@@ -368,20 +368,40 @@ def test_cli_refuses_a_host_outside_the_range(setup, argv, capsys):
     assert "--host_id must be in [0, num_hosts)" in capsys.readouterr().err
 
 
-def test_config_with_device_front_raises(setup, tmp_path):
+def test_config_with_device_front_loads(setup, tmp_path):
+    """A JAX config with ``device_front: true`` loads and runs (the device
+    NMS front); the JAX default (false) loads, and sweep_workers carries
+    over."""
     from inklayer_tpu_torch.config import load_config
     from inklayer_tpu_torch.main import main
 
     path = str(tmp_path / "front.json")
     save_config(dataclasses.replace(setup.cfg, device_front=True), path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_config(path)
-    with pytest.raises(NotImplementedError, match="device_front"):
-        main(["--dir", str(setup.tmp / "in"), "--config", path, "--device",
-              "cpu"])
-    # the JAX default (false) loads, and sweep_workers carries over
+    assert load_config(path).device_front is True
+    out = tmp_path / "front_out"
+    main(["--dir", str(setup.tmp / "in"), "--out_dir", str(out), "--config",
+          path, "--device", "cpu", "--no_intermediate"])
+    assert sorted(os.listdir(out)) == ["s0", "s1", "s2"]
+    for name in ("s0", "s1", "s2"):
+        assert sorted(os.listdir(out / name)) == sorted(
+            set(KEEP_LIST) & set(PORT_OUTPUTS))
     save_config(dataclasses.replace(setup.cfg, sweep_workers=3), path)
-    assert load_config(path).sweep_workers == 3
+    cfg = load_config(path)
+    assert cfg.sweep_workers == 3 and cfg.device_front is False
+
+
+@pytest.mark.parametrize("device", [[], ["--device", "cuda"]])
+def test_cli_cpu_flag_forces_the_cpu(setup, cli_cfg, tmp_path, device,
+                                     capsys):
+    """The JAX CLI's --cpu: the run builds on the CPU, whatever --device
+    says, and writes its outputs."""
+    from inklayer_tpu_torch.main import main
+
+    out = tmp_path / "cpu_out"
+    main(["--img", setup.paths[0], "--out_dir", str(out), "--config",
+          cli_cfg, *device, "--cpu"])
+    assert sorted(os.listdir(out / "s0")) == PORT_OUTPUTS
+    assert "stage times (s):" in capsys.readouterr().out
 
 
 def test_many_threads_drain_their_own_writes(setup):
