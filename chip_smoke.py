@@ -122,7 +122,27 @@ Phases, each of which raises on failure (exit code != 0):
              point prompts with multimask output, then a mask prompt (the
              LayerNorm kernel at 64 x 64^2 rows of 16 channels); and
              ``python -m inklayer_tpu_torch.pipeline.mmdet_route`` writing
-             the JAX package's JSON keys.
+             the JAX package's JSON keys;
+11. train  — fine-tuning through the train CLI's functions
+             (``inklayer_tpu_torch.scripts.train``) at full width, fp32,
+             seeded placeholder weights and synthetic samples: the ``sam``
+             recipe at ``SamConfig()`` (ViT-H, 1024^2), ``depth`` at
+             ``DepthConfig()`` (ViT-B, 518^2) and ``gdino`` at
+             ``GDinoConfig()`` (Swin-T, 800^2), one warm step and 3 timed
+             steps each (the depth model's output-head biases zeroed: on
+             the placeholders its last ReLU is 0 everywhere): finite
+             losses and gradient norms, parameters that move, no kernel
+             launched, step times and peak memory; the
+             full-width SAM decoder exported (``torch.export``), saved,
+             loaded and run on the card against ``decode_boxes``; the
+             three recipes at phase 4's cut depths on the card (fp32, TF32
+             off for matmuls and cuDNN) against the CPU, one step each
+             (loss and global gradient norm); the depth recipe through the
+             CLI with a checkpoint and ``--resume`` (restored exactly);
+             the eval CLI (``inklayer_tpu_torch.scripts.eval_inkscenes
+             --sketch_dir``) on two sketches drawn here, scored against
+             label matrices this script writes as MAT level-5 files, its
+             launches phase 3's per run.
 
 Phase 2 also holds the flash attention and LayerNorm kernels at SDXL's
 shapes (head dim 64 over 4096 and 1024 tokens; 8192 x 640 and 2048 x 1280
@@ -137,8 +157,8 @@ each level's line naming ``ops/conv.py conv_config``'s choice.
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
 and 5, the serving run of phase 6, the timed sweeps of phase 7, phase 8,
-the timed call of phase 9 and the checked calls of phase 10, error, times
-and bound; the last line is the device record.  Exits
+the timed call of phase 9, the checked calls of phase 10 and phase 11's
+eval CLI, error, times and bound; the last line is the device record.  Exits
 non-zero without a card, and when run outside a checkout of the
 repository.
 """
@@ -2416,6 +2436,445 @@ def phase_prompts(card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11: fine-tuning, checkpoints, evaluation, export
+# ---------------------------------------------------------------------------
+
+TRAIN_TASKS = ("sam", "depth", "gdino")
+TRAIN_STEPS = 3
+# card (fp32, TF32 off) against the CPU at cut depth, one train step from
+# the same params and batch: (loss, global gradient norm, clipped
+# gradients' L2 over every leaf), each relative.  Per recipe, between the
+# sound readings (fp32 on both sides, other summation orders) and a
+# control step on the card with TF32 on for matmuls and cuDNN, which must
+# fail them.  Read on an H100 80GB HBM3 at 700 W, sound / control: SAM
+# 1.05e-7 / 1.36e-4, 9.21e-8 / 3.12e-4, 3.14e-7 / 9.0e-3; depth 6e-8 /
+# 1.01e-5, 5.22e-6 / 5.55e-5, 6.89e-7 / 4.09e-5; GDINO 2.44e-7 / 5.16e-3,
+# 2.23e-7 / 8.8e-4, 1.2e-6 / 7.98e-3
+TRAIN_REL_TOL = {"sam": (3e-6, 3e-6, 3e-5), "depth": (1e-6, 1.5e-5, 5e-6),
+                 "gdino": (3e-5, 1e-5, 1e-4)}
+# the exported decoder against decode_boxes on the card, both fp32 with the
+# LayerNorm kernel (the program as its custom op): relative L2 of the
+# logits and the IoU; the same ops, other graphs (PR 12 read 3.4e-7 with
+# the program's LayerNorm plain)
+EXPORT_REL_L2 = 1e-5
+
+
+def train_cut_config(task: str, cfg):
+    """Full width, cut depth (phase 4's cuts)."""
+    if task == "sam":
+        return dataclasses.replace(cfg, encoder_depth=2,
+                                   encoder_global_attn_indexes=(1,))
+    if task == "depth":
+        return dataclasses.replace(cfg, depth=4,
+                                   intermediate_layers=(0, 1, 2, 3))
+    return dataclasses.replace(cfg, enc_layers=1, dec_layers=1)
+
+
+def live_depth_head(model) -> None:
+    """Zero the DPT output head's biases (flax's bias init, what the JAX
+    CLI's ``model.init`` gives).  With the std-0.02 placeholder biases the
+    head's last ReLU is 0 at every pixel of the full-width model, so the
+    SiLog loss has no gradient and no parameter could move."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("depth_head.scratch.output_conv2.") and \
+                    name.endswith(".bias"):
+                p.zero_()
+
+
+def live_sam_logits(model) -> None:
+    """Scale the mask decoder's hypernetwork output layers by 100: with the
+    std-0.02 placeholders SAM's mask logits are ~1e-2 (the loss is the
+    p = 0.5 constant and the gradient sits in the decoder's last layers);
+    scaled, they are O(1) and the gradient reaches the image encoder."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("mask_decoder.output_hypernetworks_mlps.") \
+                    and ".layers.2." in name:
+                p.mul_(100.0)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _train_full(card: str, task: str, export_dir: str) -> dict:
+    """The recipe at full width through the CLI's functions: one warm step
+    and TRAIN_STEPS timed ones, no kernel launch, finite losses and
+    gradients, parameters that move; for SAM also the decoder export."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.train import Trainer, adamw
+    from inklayer_tpu_torch.scripts import train as cli
+
+    args = cli.parse_args(["--task", task, "--synthetic", "2"])
+    cfg, size = cli.task_config(args)
+    t0 = time.perf_counter()
+    t = cli.make_task(task, cfg, size, np.random.default_rng(args.seed))
+    model = cli.init_model(t, "cuda", args.seed)
+    if task == "depth":
+        live_depth_head(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    it = cli.batches(cli.load_samples(args, t), args.batch)
+    trainer = Trainer(t.loss_fn, model,
+                      optimizer=adamw(model.parameters(), args.lr),
+                      max_grad_norm=1.0)
+    watch = [p for p in trainer.params[:2] + trainer.params[-2:]]
+    before = [p.detach().clone() for p in watch]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, norms, times = [], [], []
+    for step in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = trainer.train_step(next(it))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        norms.append(float(trainer.grad_norm))
+    launched = {k: v for k, v in _kernels.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launched:
+        raise AssertionError(f"train {task}: kernels launched in the train "
+                             f"steps: {launched}")
+    # one more step under the FLOP counter (matmuls, convolutions and
+    # attention, forward and backward; elementwise work is not counted)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        losses.append(float(trainer.train_step(next(it))))
+        norms.append(float(trainer.grad_norm))
+    flops = counter.get_total_flops()
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train {task}: losses {losses}, grad norms "
+                             f"{norms}")
+    moved = sum(float((p.detach() - b).abs().sum())
+                for p, b in zip(watch, before))
+    if not moved > 0:
+        raise AssertionError(f"train {task}: the parameters did not move")
+    step_ms = statistics.median(times[1:])
+    log(f"  train {task} at full width ({n_params / 1e6:.1f} M params, "
+        f"fp32, batch {args.batch}) [{card}]: built in {build_s:.1f} s; "
+        f"warm step {times[0]:.1f} ms, steps "
+        f"{', '.join(f'{x:.1f}' for x in times[1:])} ms (median "
+        f"{step_ms:.1f}); losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"grad norms {', '.join(f'{x:.4g}' for x in norms)}; peak memory "
+        f"allocated {peak:.2f} GiB; no kernel launched; counted "
+        f"{flops / 1e12:.4f} TFLOP per step (torch.utils.flop_counter), "
+        f"{flops / step_ms / 1e9:.2f} TFLOP/s at the median step, "
+        f"{flops / step_ms * 1e3 / PEAK_FP32:.3f} of the fp32 "
+        f"peak")
+    out = {"step_ms": step_ms, "peak_gib": peak, "tflop": flops / 1e12}
+    if task == "sam":
+        del trainer
+        out["export"] = _export_decoder(card, model.eval(), cfg, export_dir)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _export_decoder(card: str, model, cfg, export_dir: str) -> dict:
+    """The full-width SAM decoder exported, saved, loaded and run on the
+    card against ``decode_boxes``."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.io.export import export_sam_decoder, load_exported
+
+    path = os.path.join(export_dir, "sam_decoder.pt2")
+    t0 = time.perf_counter()
+    _, blob = export_sam_decoder(model, cfg, path, box_capacity=64)
+    program = load_exported(path).module()
+    export_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(7)
+    grid = cfg.image_size // cfg.patch_size
+    emb = torch.randn((1, grid, grid, cfg.prompt_embed_dim),
+                      generator=gen).cuda()
+    xy = torch.rand((64, 2), generator=gen) * 700
+    boxes = torch.cat([xy, xy + 40 + torch.rand((64, 2), generator=gen)
+                       * 300], 1).cuda()
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        got = program(emb, boxes)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _kernels.launch_counts().items() if v}
+        _kernels.reset_launch_counts()
+        want = model.decode_boxes(emb, boxes)
+        kernels = {k: v for k, v in _kernels.launch_counts().items() if v}
+    if kernels != {"layernorm": sam_layernorm_launches(0, 1)} or \
+            launched != kernels:
+        raise AssertionError(f"export: the program launched {launched}, "
+                             f"decode_boxes {kernels}")
+    errs = []
+    for name, a, b in zip(("logits", "iou"), got, want):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"export: {name} {tuple(a.shape)} vs "
+                                 f"{tuple(b.shape)} or not finite")
+        errs.append(float((a - b).float().norm() / b.float().norm()))
+        if errs[-1] > EXPORT_REL_L2:
+            raise AssertionError(f"export: {name} relative L2 {errs[-1]:.3g}"
+                                 f" > {EXPORT_REL_L2}")
+    log(f"  export of the full-width SAM decoder [{card}]: "
+        f"{len(blob) / 2 ** 20:.1f} MiB .pt2 in {export_s:.1f} s; loaded "
+        f"program on the card vs decode_boxes: relative L2 logits "
+        f"{errs[0]:.3g}, iou {errs[1]:.3g} (limit {EXPORT_REL_L2}); both "
+        f"launched {launched}")
+    return {"rel_l2": errs, "launches": launched}
+
+
+def _train_step_readings(task: str) -> dict:
+    """One train step at cut depth from the same params and batch on the
+    CPU, on the card (fp32, TF32 off) and on the card with TF32 on (the
+    control): {device: (loss, grad norm, clipped gradients on the CPU,
+    seconds)}."""
+    import copy
+
+    import torch
+
+    from inklayer_tpu_torch.parallel.train import Trainer, adamw
+    from inklayer_tpu_torch.scripts import train as cli
+
+    args = cli.parse_args(["--task", task, "--synthetic", "1"])
+    cfg, size = cli.task_config(args)
+    cfg = train_cut_config(task, cfg)
+    t = cli.make_task(task, cfg, size, np.random.default_rng(args.seed))
+    cpu_model = cli.init_model(t, "cpu", args.seed)
+    if task == "depth":
+        live_depth_head(cpu_model)
+    if task == "sam":
+        live_sam_logits(cpu_model)
+    models = {"cuda": copy.deepcopy(cpu_model).cuda(),
+              "tf32": copy.deepcopy(cpu_model).cuda(), "cpu": cpu_model}
+    batch = next(cli.batches(cli.load_samples(args, t), 1))
+    got = {}
+    for dev, model in models.items():
+        tf32 = dev == "tf32"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            t0 = time.perf_counter()
+            trainer = Trainer(t.loss_fn, model, optimizer=adamw(
+                model.parameters(), args.lr), max_grad_norm=1.0)
+            loss = float(trainer.train_step(batch))
+            grads = [p.grad.detach().float().cpu() for p in trainer.params]
+            got[dev] = (loss, float(trainer.grad_norm), grads,
+                        time.perf_counter() - t0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        del trainer
+        models[dev] = None
+        del model
+    torch.cuda.empty_cache()
+    return got
+
+
+def _against_cpu(got: dict, dev: str):
+    """(loss, grad norm, gradient) relative errors of ``dev`` against the
+    CPU."""
+    loss, norm, grads, _ = got[dev]
+    want = got["cpu"]
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(grads, want[2]))
+    den = sum(float((b ** 2).sum()) for b in want[2])
+    return (_rel(loss, want[0]), _rel(norm, want[1]),
+            (num / max(den, 1e-30)) ** 0.5)
+
+
+def _train_reference(task: str) -> dict:
+    """Card (fp32, TF32 off) against the CPU at cut depth within the
+    recipe's limits, and the TF32 control outside them."""
+    got = _train_step_readings(task)
+    sound = _against_cpu(got, "cuda")
+    control = _against_cpu(got, "tf32")
+    limit = TRAIN_REL_TOL[task]
+    fmt = lambda r: ", ".join(f"{k} {v:.3g}" for k, v in zip(
+        ("loss", "grad norm", "gradients"), r))
+    log(f"  train {task} at cut depth, against the CPU (loss "
+        f"{got['cpu'][0]!r}, grad norm {got['cpu'][1]!r}, CPU step "
+        f"{got['cpu'][3]:.1f} s): card fp32, TF32 off: {fmt(sound)}; card "
+        f"TF32 on (control): {fmt(control)}; limits {limit}")
+    if not all(r <= lim for r, lim in zip(sound, limit)):
+        raise AssertionError(f"train {task}: card and CPU disagree "
+                             f"({fmt(sound)}; limits {limit})")
+    if all(r <= lim for r, lim in zip(control, limit)):
+        raise AssertionError(f"train {task}: the TF32 control passes the "
+                             f"limits {limit} ({fmt(control)})")
+    return {"sound": sound, "control": control}
+
+
+def _cli_losses(argv) -> tuple:
+    """(trainer, {step: loss}) of one train CLI run; its lines echoed."""
+    import contextlib
+    import io
+    import re
+
+    from inklayer_tpu_torch.scripts import train as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer = cli.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"    {line}")
+    return trainer, {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"step +(\d+) +loss (\S+)", out.getvalue())}
+
+
+def _train_checkpoint(card: str) -> None:
+    """The GroundingDINO recipe at full width through the CLI on the card:
+    three steps with a checkpoint after the second, which must differ
+    from a fresh init; a resume that restores it exactly; a resumed step
+    whose loss is the third step's (same params, same sample)."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.io.checkpoint import load_params
+    from inklayer_tpu_torch.scripts import train as cli
+
+    ckpt = os.path.join(WORK, "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--task", "gdino", "--synthetic", "2"]
+    step2 = os.path.join(ckpt, "step_2")
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    trained, losses = _cli_losses(base + ["--steps", "3", "--ckpt", ckpt,
+                                          "--ckpt_every", "2"])
+    last = load_params(os.path.join(ckpt, "step_3"))
+    for k, v in trained.model.state_dict().items():
+        if not torch.equal(last[k], v.cpu()):
+            raise AssertionError(f"checkpoint: {k} differs from the model")
+    del trained, last
+    saved = load_params(step2)
+    args = cli.parse_args(base)
+    fresh = cli.init_model(cli.make_task("gdino", *cli.task_config(args),
+                                         np.random.default_rng(args.seed)),
+                           "cpu", args.seed).state_dict()
+    moved = sum(not torch.equal(saved[k], v) for k, v in fresh.items())
+    if not moved:
+        raise AssertionError("checkpoint: step 2 equals a fresh init")
+    del fresh
+    resumed, _ = _cli_losses(base + ["--steps", "0", "--resume", step2])
+    for k, v in resumed.model.state_dict().items():
+        if not torch.equal(saved[k], v.cpu()):
+            raise AssertionError(f"resume: {k} differs from the checkpoint")
+    del resumed
+    step, again = _cli_losses(base + ["--steps", "1", "--resume", step2])
+    if not _rel(again[1], losses[3]) <= 1e-5:
+        raise AssertionError(f"resumed step loss {again[1]}, the third "
+                             f"step's {losses[3]}")
+    launched = {k: v for k, v in _kernels.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"train CLI launched kernels {launched}")
+    size = os.path.getsize(os.path.join(step2, "params.safetensors"))
+    del step
+    torch.cuda.empty_cache()
+    log(f"  train CLI (gdino, full width) [{card}]: 3 steps, checkpoint "
+        f"after step 2 ({size / 2 ** 20:.1f} MiB; {moved} of {len(saved)} "
+        f"tensors moved from the fresh init); resume restored it exactly; "
+        f"the resumed step's loss {again[1]} against the third step's "
+        f"{losses[3]}; {time.perf_counter() - t0:.1f} s; no kernel launched")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def write_label_mat(path: str, labels: np.ndarray,
+                    name: str = "INSTANCE_GT") -> None:
+    """An uncompressed little-endian MAT level-5 file holding one uint8
+    matrix (what the InkScenes ground truth holds; scipy need not be on
+    the card's machine)."""
+    import struct
+
+    def element(mtype: int, data: bytes) -> bytes:
+        return (struct.pack("<II", mtype, len(data)) + data
+                + b"\0" * (-len(data) % 8))
+
+    body = (element(6, struct.pack("<II", 9, 0))  # mxUINT8_CLASS
+            + element(5, struct.pack("<2i", *labels.shape))
+            + element(1, name.encode())
+            + element(2, labels.astype(np.uint8).tobytes(order="F")))
+    head = b"MATLAB 5.0 MAT-file, chip_smoke".ljust(116, b" ") + b"\0" * 8
+    with open(path, "wb") as f:
+        f.write(head + struct.pack("<H", 0x0100) + b"IM"
+                + struct.pack("<II", 14, len(body)) + body)
+
+
+def _eval_cli(card: str, per_run: dict) -> dict:
+    """The eval CLI with --sketch_dir on two sketches, scored against label
+    matrices written here; its launches must be phase 3's per run."""
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.config import to_jsonable
+    from inklayer_tpu_torch.io.matfile import loadmat
+    from inklayer_tpu_torch.scripts import eval_inkscenes
+
+    root = os.path.join(WORK, "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    sketches, gt, out = (os.path.join(root, d)
+                         for d in ("sketches", "gt", "out"))
+    os.makedirs(sketches)
+    os.makedirs(gt)
+    for i in range(2):
+        draw_sketch(os.path.join(sketches, f"sketch{i:02d}.png"), shift=i)
+        lm = np.zeros((750, 750), np.uint8)
+        for label, (y0, x0, y1, x1) in enumerate(
+                ((60, 60, 360, 380), (420, 300, 700, 690),
+                 (100, 480, 300, 700), (520, 80, 620, 220)), start=1):
+            lm[y0 + i // 2:y1 + i, x0 + i // 2:x1 + i] = label
+        path = os.path.join(gt, f"sketch{i:02d}.mat")
+        write_label_mat(path, lm)
+        if not np.array_equal(loadmat(path)["INSTANCE_GT"], lm):
+            raise AssertionError("loadmat does not read back the label matrix")
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(to_jsonable(slice_config()), f)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = eval_inkscenes.main(["--sketch_dir", sketches, "--gt_dir", gt,
+                                  "--outputs", out, "--config", cfg_path])
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    want = {k: 2 * v for k, v in per_run.items() if v}
+    if counts != want:
+        raise AssertionError(f"eval CLI launches {counts}, phase 3's two "
+                             f"runs {want}")
+    agg = report["aggregate"]
+    if sorted(report["images"]) != ["sketch00", "sketch01"] or not all(
+            np.isfinite(v) for v in agg.values()):
+        raise AssertionError(f"eval report {report}")
+    log(f"  eval CLI --sketch_dir on 2 sketches [{card}]: {wall:.1f} s "
+        f"(build included); launches {counts} (phase 3's per run x 2); "
+        f"aggregate {json.dumps(agg)}")
+    return counts
+
+
+def phase_train(card: str, per_run: dict) -> dict:
+    """Fine-tuning at full width, card against CPU at cut depth, the train
+    CLI's checkpoints, the eval CLI and the SAM decoder export, all in
+    fp32 with TF32 off for matmuls and cuDNN (as phase 2 leaves them)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    full = {}
+    for task in TRAIN_TASKS:
+        full[task] = _train_full(card, task, WORK)
+    for task in TRAIN_TASKS:
+        _train_reference(task)
+    _train_checkpoint(card)
+    counts = _add_counts(_eval_cli(card, per_run),
+                         full["sam"]["export"]["launches"])
+    log(f"  phase 11 steps [{card}]: " + ", ".join(
+        f"{k} {v['step_ms']:.1f} ms ({v['peak_gib']:.2f} GiB)"
+        for k, v in full.items()) + f"; {time.perf_counter() - t0:.1f} s")
+    return {"launches": counts, "full": full}
+
+
 def ptxas_entries(log_text: str) -> dict:
     """{mangled kernel name: {"regs", "stack", "spill_stores", "spill_loads",
     "smem"}} from nvcc's ``-Xptxas -v`` messages."""
@@ -2574,6 +3033,11 @@ def main() -> int:
     prompts_res = phase_prompts(card)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 11: fine-tuning, checkpoints, evaluation, export [{card}]")
+    t0 = time.perf_counter()
+    train_res = phase_train(card, slice_res["launches"])
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -2584,7 +3048,9 @@ def main() -> int:
             # cases; launches: the last timed runs of phases 3 and 5, the
             # serving run of phase 6, the timed sweeps of phase 7, the
             # convolution's entry point (phase 8), the timed generate
-            # of phase 9 and phase 10's checked runs and calls
+            # of phase 9, phase 10's checked runs and calls and phase
+            # 11's eval CLI and exported decoder (the train steps launch
+            # none)
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
@@ -2593,7 +3059,8 @@ def main() -> int:
             + sweep_res["launches"].get(name, 0)
             + conv_counts.get(name, 0)
             + sdxl_res["launches"].get(name, 0)
-            + prompts_res["launches"].get(name, 0),
+            + prompts_res["launches"].get(name, 0)
+            + train_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

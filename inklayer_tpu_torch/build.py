@@ -49,7 +49,10 @@ def init_placeholder_params(model: nn.Module, seed: int,
     """Seeded N(0, std) for every parameter and buffer; norm layers get
     scale 1 and shift 0.  Deterministic for a seed, whatever the device."""
     gen = torch.Generator().manual_seed(seed)
-    for t in list(model.parameters()) + list(model.buffers()):
+    # parameters the reference holds as buffers draw with the buffers
+    params = sorted(model.parameters(),
+                    key=lambda p: getattr(p, "placeholder_last", False))
+    for t in params + list(model.buffers()):
         if not t.is_floating_point():
             continue
         if t.device.type == "cpu" and t.dtype == torch.float32 \

@@ -208,6 +208,17 @@ class PipelineConfig:
     device_front: bool = False
 
 
+def to_jsonable(obj: Any) -> Any:
+    """A config dataclass as ``json.dump`` input (the JAX package's
+    ``_to_jsonable``): sections become dicts, tuples lists."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: to_jsonable(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [to_jsonable(x) for x in obj]
+    return obj
+
+
 def _from_jsonable(cls: type, data: dict) -> Any:
     """Rebuild a dataclass from ``json.load`` output: nested sections
     recurse, lists become tuples, unknown keys are ignored."""

@@ -28,8 +28,14 @@ class PositionEmbeddingRandom(nn.Module):
 
     def __init__(self, num_pos_feats: int = 128):
         super().__init__()
-        self.register_buffer("positional_encoding_gaussian_matrix",
-                             torch.zeros(2, num_pos_feats))
+        # a parameter, as in the JAX package's tree: training updates it
+        # (the reference registers a buffer; the checkpoint key is the
+        # same).  build.init_placeholder_params draws it after the other
+        # parameters, where it drew the buffer, so the seeded placeholders
+        # are unchanged
+        gauss = nn.Parameter(torch.zeros(2, num_pos_feats))
+        gauss.placeholder_last = True
+        self.positional_encoding_gaussian_matrix = gauss
 
     def forward(self, coords: torch.Tensor) -> torch.Tensor:
         """coords in [0, 1], (..., 2) -> (..., 2 * num_pos_feats), fp32."""

@@ -5,11 +5,19 @@ Port of :mod:`inklayer_tpu.ops.norm` (Pallas ``layernorm_2d`` and
 kernel in ``csrc/layernorm.cu``; on a CPU tensor they run the plain
 version below, which is also the reference the kernel is held against.
 :func:`layernorm_config` is the kernel's launch configuration.
+
+A ctypes launch cannot be traced, so under ``torch.export`` (or
+``torch.compile``) a CUDA tensor's launch is recorded as the custom op
+``inklayer::layernorm_2d`` / ``inklayer::layernorm_residual_2d``: the
+program then launches the kernel on the card, as a JAX program exported on
+a TPU holds the Pallas call, and runs the plain version on the CPU.
+Loading such a program needs this module imported (it registers the ops).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 
@@ -112,11 +120,42 @@ def _launch(x, y, scale, bias, eps):
     return sum_out, out
 
 
+@torch.library.custom_op("inklayer::layernorm_2d", mutates_args=(),
+                         device_types="cuda")
+def _layernorm_2d_op(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, eps: float) -> torch.Tensor:
+    return _launch(x, None, scale, bias, eps)[1]
+
+
+@torch.library.custom_op("inklayer::layernorm_residual_2d", mutates_args=(),
+                         device_types="cuda")
+def _layernorm_residual_2d_op(x: torch.Tensor, y: torch.Tensor,
+                              scale: torch.Tensor, bias: torch.Tensor,
+                              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(x, y, scale, bias, eps)
+
+
+_layernorm_2d_op.register_kernel("cpu")(layernorm_2d_plain)
+_layernorm_residual_2d_op.register_kernel("cpu")(layernorm_residual_2d_plain)
+
+
+@_layernorm_2d_op.register_fake
+def _(x, scale, bias, eps):
+    return torch.empty_like(x)
+
+
+@_layernorm_residual_2d_op.register_fake
+def _(x, y, scale, bias, eps):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
 def layernorm_2d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """x: (N, C); scale, bias: (C,).  LN(x) in x.dtype, fp32 statistics."""
     if not use_kernel(x, scale, bias):
         return layernorm_2d_plain(x, scale, bias, eps)
+    if torch.compiler.is_compiling():  # traced: the launch as one op
+        return _layernorm_2d_op(x, scale, bias, eps)
     return _launch(x, None, scale, bias, eps)[1]
 
 
@@ -126,4 +165,6 @@ def layernorm_residual_2d(x: torch.Tensor, y: torch.Tensor,
     """Returns (x + y, LN(x + y)); the sum is taken and normalised in fp32."""
     if not use_kernel(x, y, scale, bias):
         return layernorm_residual_2d_plain(x, y, scale, bias, eps)
+    if torch.compiler.is_compiling():
+        return _layernorm_residual_2d_op(x, y, scale, bias, eps)
     return _launch(x, y, scale, bias, eps)

@@ -1,18 +1,29 @@
-"""Where a kernel runs: the device rule of the port.
+"""Where a kernel runs: the device rule of the port, and its one switch.
 
 Every op that has a hand-written CUDA kernel decides by the tensor it is
-given, never by a global switch:
+given:
 
 * a tensor on a CUDA device goes to the kernel, which launches or raises;
 * a tensor on the CPU goes to the op's plain PyTorch version.
 
 There is no fallback from a failed build or launch to the plain version,
 and no fallback from a missing card to the CPU.
+
+One switch overrides the rule: inside :func:`disable_kernels`, CUDA
+tensors take the plain versions too.  It is the JAX package's own training
+rule (``inklayer_tpu.runtime.disable_pallas``): the kernels are
+forward-only and bf16-only, and a training step differentiates its
+forward in float32.  Only :meth:`parallel.train.Trainer.train_step`
+enters it.  It is never entered on a failure or a missing card.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_disable_depth = 0
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -25,16 +36,29 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
         if not t.is_cuda:
             break
     else:
-        return True
+        return _disable_depth == 0
     types = {t.device.type for t in tensors}
     if len(types) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(types)}")
     kind = types.pop()
     if kind == "cuda":
-        return True
+        return _disable_depth == 0
     if kind == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device type {kind!r}")
+
+
+@contextlib.contextmanager
+def disable_kernels():
+    """Run every op's plain version, on the card too, while the context is
+    open (a counted depth: contexts nest).  For the train step only; see
+    the module docstring."""
+    global _disable_depth
+    _disable_depth += 1
+    try:
+        yield
+    finally:
+        _disable_depth -= 1
 
 
 def resolve_device(device) -> torch.device:
