@@ -86,7 +86,7 @@ Phases, each of which raises on failure (exit code != 0):
              to 8 to keep the script in its time): the 8 runs one after
              another (the outputs and launches every sweep is held to),
              one warm sweep, then one timed sweep each with 1 worker (the
-             lookahead), 2 and 4 workers, and batches of 2 and 4; each
+             lookahead), 2 workers, and batches of 2 and 4; each
              sweep's launches exact (the runs', with detection and SAM's
              encode counted once per batch of images), its outputs equal
              to the runs' file for file (IoU >= 0.99 of the final masks
@@ -142,7 +142,23 @@ Phases, each of which raises on failure (exit code != 0):
              the eval CLI (``inklayer_tpu_torch.scripts.eval_inkscenes
              --sketch_dir``) on two sketches drawn here, scored against
              label matrices this script writes as MAT level-5 files, its
-             launches phase 3's per run.
+             launches phase 3's per run;
+12. mesh   — two ranks on the one card (``parallel/mesh.py``, one process
+             each): a probe of NCCL (two ranks on one device) and of the
+             backend the rule picks (gloo), its collectives on CUDA
+             tensors; SAM ViT-H at 1024², bf16, kernels on, encoded over
+             tp=2 (head-parallel) against the single-process encode on
+             the card (relative L2, exact per-rank launches: K1 + K2 32,
+             K3 32 at hidden 2560, K4/K4r 66); GroundingDINO at 800²,
+             bf16, over dp=2 on 2 images, each rank's boxes and logits
+             against its rows of the batched forward (its launches the
+             batched forward's); one fp32 SAM ViT-H train step over
+             (1, 1, 2) and over (2, 1, 1) (and (1, 2, 1) where the
+             backend gathers and scatters CUDA tensors) against one
+             process within ``TRAIN_REL_TOL``, ms and peak memory per
+             rank; ``dryrun_multichip(2)``; the train CLI under
+             ``torchrun`` (GroundingDINO, dp=2, a checkpoint) resumed in
+             one process.
 
 Phase 2 also holds the flash attention and LayerNorm kernels at SDXL's
 shapes (head dim 64 over 4096 and 1024 tokens; 8192 x 640 and 2048 x 1280
@@ -157,8 +173,11 @@ each level's line naming ``ops/conv.py conv_config``'s choice.
 The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
 and 5, the serving run of phase 6, the timed sweeps of phase 7, phase 8,
-the timed call of phase 9, the checked calls of phase 10 and phase 11's
-eval CLI, error, times and bound; the last line is the device record.  Exits
+the timed call of phase 9, the checked calls of phase 10, phase 11's
+eval CLI and phase 12's sharded encodes and detects (both ranks), error,
+times and bound; the last line is the device record.  ``python3
+chip_smoke.py --mesh-rank ...`` is one rank of phase 12 (started by the
+script itself).  Exits
 non-zero without a card, and when run outside a checkout of the
 repository.
 """
@@ -557,7 +576,9 @@ def phase_kernels(results: dict) -> None:
                          ("windows (800,196,80) SAM batch 2", 800, 14),
                          ("global (32,4096,80) SAM batch 2", 32, 64),
                          ("windows (1600,196,80) SAM batch 4", 1600, 14),
-                         ("global (64,4096,80) SAM batch 4", 64, 64)):
+                         ("global (64,4096,80) SAM batch 4", 64, 64),
+                         ("windows (200,196,80) tp=2 rank", 200, 14),
+                         ("global (8,4096,80) tp=2 rank", 8, 64)):
         n = kh * kh
         args = [randn(bh, n, 80), randn(bh, n, 80), randn(bh, n, 80),
                 randn(bh, n, kh), randn(bh, n, kh)]
@@ -594,6 +615,18 @@ def phase_kernels(results: dict) -> None:
                   PEAK_BF16),
             lambda: F.linear(F.gelu(F.linear(args[0], args[1], args[2])),
                              args[3], args[4]), rel_l2=5e-3)
+    # a tp=2 rank of SAM ViT-H: hidden 2560 (fc1 N = 2560, fc2 K = 2560;
+    # the rank's partial sum, fc2's bias on one rank)
+    hl = h // 2
+    args = [randn(4096, c), randn(hl, c, std=c ** -0.5), randn(hl, std=0.1),
+            randn(c, hl, std=hl ** -0.5), randn(c, std=0.1)]
+    _kernel_case(
+        results, "mlp_gelu", "(4096,1280)->(2560)->(1280) tp=2 rank",
+        mlp.mlp_gelu, mlp.mlp_gelu_plain, args, 2e-2, 2e-2,
+        bound(4.0 * 4096 * c * hl,
+              2.0 * (2 * 4096 * c + 2 * hl * c + hl + c), PEAK_BF16),
+        lambda: F.linear(F.gelu(F.linear(args[0], args[1], args[2])),
+                         args[3], args[4]), rel_l2=5e-3)
     t = 4096
     fc2 = [randn(t, h, std=0.5), weights[2], weights[3]]
     _kernel_case(
@@ -736,6 +769,7 @@ def phase_kernels(results: dict) -> None:
     # (1, BH, N, D) views (on 3-D inputs it takes its unfused math path).
     for case, bh, n, d in (("(12,1370,64)", 12, 1370, 64),
                            ("(2,70,64) 70 of 128 keys", 2, 70, 64),
+                           ("(6,1370,64) DINOv2 tp=2 rank", 6, 1370, 64),
                            ("(16,9216,40) UNet level 0", 16, 9216, 40),
                            ("(2,70,40) 70 of 128 keys", 2, 70, 40),
                            ("(16,2304,80) UNet level 1", 16, 2304, 80),
@@ -1802,7 +1836,6 @@ SWEEP_SKETCHES = 8
 # default workers
 SWEEP_MODES = (("workers 1 (lookahead)", {"workers": 1}),
                ("workers 2", {"workers": 2}),
-               ("workers 4", {"workers": 4}),
                ("batch 2", {"batch_size": 2}),
                ("batch 4", {"batch_size": 4}))
 
@@ -2875,6 +2908,498 @@ def phase_train(card: str, per_run: dict) -> dict:
     return {"launches": counts, "full": full}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh, two ranks on one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 420
+# relative L2, bf16 with kernels, of the tp=2 SAM ViT-H encode and the
+# tp=2 DINOv2 ViT-B tapped features against one process on the same card,
+# and of each dp=2 rank's GroundingDINO boxes and finite logits against its
+# rows of the batched forward.  Read on an H100 80GB HBM3 at 700 W (every
+# input seeded; the kernels and the two-rank fp32 sums are deterministic):
+# SAM 1.66e-2 (each rank's K3 output is rounded to bf16 before the sum, 32
+# blocks deep), DINOv2 1.15e-3, GDINO boxes 1.88e-2 / 4.4e-5 and logits
+# 1.62e-2 / 8.9e-3 on ranks 0 / 1 (a batch of one is another GEMM shape
+# than a batch of two in bf16; each rank equals its image run alone in
+# one process exactly, which is checked too).  A wrong head split or a
+# bias added twice reads O(1).
+MESH_SAM_REL_L2 = 2e-2
+MESH_DINOV2_REL_L2 = 3e-3
+MESH_GDINO_REL_L2 = 4e-2
+# per-rank launches of one tp=2 encode: K1 28 + K2 4 (relpos), K3 32 at
+# hidden 2560, K4/K4r as a single encode (66)
+EXPECTED_TP_ENCODE = {"relpos_attention": 32, "mlp_gelu": 32,
+                      "layernorm": LN_PER_ENCODE}
+
+
+def _probe_collectives(dev) -> dict:
+    """Which collectives this rank's backend runs on CUDA tensors (a probe:
+    each one's error is the reading)."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    full = lambda k: torch.full((k,), r + 1.0, device=dev)
+    total = n * (n + 1) / 2.0  # the sum of the ranks' r + 1
+
+    def all_reduce():
+        t = full(4)
+        dist.all_reduce(t)
+        return bool((t == total).all())
+
+    def all_gather_into_tensor():
+        out = torch.empty(4 * n, device=dev)
+        dist.all_gather_into_tensor(out, full(4))
+        return torch.equal(out.cpu(),
+                           torch.arange(1.0, n + 1).repeat_interleave(4))
+
+    def reduce_scatter_tensor():
+        out = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(out, full(4 * n))
+        return bool((out == total).all())
+
+    out = {}
+    for fn in (all_reduce, all_gather_into_tensor, reduce_scatter_tensor):
+        try:
+            ok = fn()
+            torch.cuda.synchronize()
+            out[fn.__name__] = "ok" if ok else "wrong result"
+        except Exception as e:  # the probe's reading, not a fallback
+            out[fn.__name__] = (f"{type(e).__name__}: "
+                                f"{str(e).splitlines()[0][:160]}")
+    return out
+
+
+def _rank_nccl() -> None:
+    """One rank of the NCCL probe: two ranks on one card."""
+    import torch
+    import torch.distributed as dist
+
+    from inklayer_tpu_torch.parallel.mesh import INIT_ENV
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=os.environ[INIT_ENV],
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(json.dumps({"nccl_all_reduce": t.tolist()}), flush=True)
+    dist.destroy_process_group()
+
+
+def _mesh_tp_encode(dev, base, size: int) -> dict:
+    """SAM ViT-H at 1024², bf16, kernels on: the single-process encode, then
+    the model's tp=2 plan and the rank's encode, its launches counted."""
+    import copy
+
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.mesh import make_mesh
+    from inklayer_tpu_torch.parallel.sharding import apply_tp
+
+    from inklayer_tpu_torch.runtime import disable_kernels
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((1, size, size, 3), generator=gen).to(dev)
+    with torch.no_grad(), disable_kernels():  # the fp32 yardstick, plain
+        sam = copy.deepcopy(base).to(dev).eval()
+        ref32 = sam.encode(x).float()
+    del sam
+    torch.cuda.empty_cache()
+    sam = copy.deepcopy(base).to(dev, torch.bfloat16).eval()
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        ref = sam.encode(x)
+        single_ms = cuda_median_ms(lambda: sam.encode(x), iters=3, warmup=1)
+        apply_tp(sam, make_mesh(1, 1, MESH_RANKS))
+        sam.encode(x)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = sam.encode(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+        tp_ms = cuda_median_ms(lambda: sam.encode(x), iters=3, warmup=1)
+    rel = lambda a, b: float((a.float() - b).norm() / b.norm())
+    finite = bool(torch.isfinite(out).all())
+    del sam
+    torch.cuda.empty_cache()
+    return {"rel_l2": rel(out, ref.float()), "finite": finite,
+            "single_to_fp32": rel(ref, ref32), "tp_to_fp32": rel(out, ref32),
+            "shape": list(out.shape), "counts": counts,
+            "single_ms": single_ms, "tp_ms": tp_ms}
+
+
+def _mesh_tp_dinov2(dev) -> dict:
+    """Depth-Anything-V2's DINOv2 ViT-B at 518², bf16, kernels on: the
+    tapped features of one process, then of the rank's tp=2 blocks."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.mesh import make_mesh
+    from inklayer_tpu_torch.parallel.sharding import apply_tp
+    from inklayer_tpu_torch.scripts import train as cli
+
+    args = cli.parse_args(["--task", "depth"])
+    cfg, size = cli.task_config(args)
+    t = cli.make_task("depth", cfg, size, np.random.default_rng(0))
+    vit = cli.init_model(t, "cpu", args.seed).pretrained.to(
+        dev, torch.bfloat16)
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn((1, size, size, 3), generator=gen).to(dev,
+                                                          torch.bfloat16)
+    taps = cfg.intermediate_layers
+    feats = lambda: torch.cat([f for pair in vit(x, taps) for f in
+                               (pair[0].flatten(), pair[1].flatten())])
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        ref = feats()
+        torch.cuda.synchronize()
+        single = {k: v for k, v in _kernels.launch_counts().items() if v}
+        apply_tp(vit, make_mesh(1, 1, MESH_RANKS))
+        _kernels.reset_launch_counts()
+        out = feats()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    del vit
+    torch.cuda.empty_cache()
+    return {"rel_l2": rel, "finite": bool(torch.isfinite(out).all()),
+            "counts": counts, "single_counts": single}
+
+
+def _mesh_dp_detect(dev) -> dict:
+    """GroundingDINO SwinT-OGC at 800², bf16, kernels on: the batched
+    forward on 2 images, then this rank's image (its dp slice), then the
+    same image in a plain batch-1 forward."""
+    import torch
+    import torch.distributed as dist
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.mesh import make_mesh
+    from inklayer_tpu_torch.parallel.sharding import shard_batch
+    from inklayer_tpu_torch.scripts import train as cli
+
+    args = cli.parse_args(["--task", "gdino"])
+    cfg, size = cli.task_config(args)
+    t = cli.make_task("gdino", cfg, size, np.random.default_rng(0))
+    model = cli.init_model(t, "cpu", args.seed).to(dev, torch.bfloat16)
+    from inklayer_tpu_torch.models.gdino.bert import subsentence_masks
+
+    attn, pos = subsentence_masks(cli.CAPTION_IDS)
+    gen = torch.Generator().manual_seed(12)
+    rep = lambda a: torch.from_numpy(np.repeat(a, MESH_RANKS, 0)).to(dev)
+    inputs = {"image": torch.randn((MESH_RANKS, size, size, 3),
+                                   generator=gen).to(dev),
+              "pad": torch.zeros((MESH_RANKS, size, size), dtype=torch.bool,
+                                 device=dev),
+              "ids": rep(cli.CAPTION_IDS), "attn": rep(attn), "pos": rep(pos)}
+    order = ("image", "pad", "ids", "attn", "pos")
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        ref_logits, ref_boxes = model(*(inputs[k] for k in order))
+        torch.cuda.synchronize()
+        batched = {k: v for k, v in _kernels.launch_counts().items() if v}
+        mine = shard_batch({**inputs, "logits": ref_logits,
+                            "boxes": ref_boxes},
+                           make_mesh(MESH_RANKS, 1, 1))
+        _kernels.reset_launch_counts()
+        logits, boxes = model(*(mine[k] for k in order))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+        # the same image alone in one process: the dp rank runs exactly it
+        r = dist.get_rank()
+        alone = model(*(inputs[k][r:r + 1] for k in order))
+    fin = torch.isfinite(mine["logits"])
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    out = {"boxes_rel_l2": rel(boxes, mine["boxes"]),
+           "logits_rel_l2": rel(logits[fin], mine["logits"][fin]),
+           "same_finite": bool(torch.equal(torch.isfinite(logits), fin)),
+           "equal_alone": bool(torch.equal(logits, alone[0])
+                               and torch.equal(boxes, alone[1])),
+           "counts": counts, "batched_counts": batched}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train(dev, base, probe: dict) -> dict:
+    """SAM ViT-H at full width, fp32, TF32 off: rank 0's single-process
+    steps (batch 1 and 2: the references), then one step over each mesh
+    of two ranks on both: (1, 1, 2) on batch 1, (2, 1, 1) on batch 2, and
+    (1, 2, 1) on batch 1 where the backend gathers and scatters CUDA
+    tensors.  Loss, grad norm, ms and peak memory of each."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.train import Trainer, adamw
+    from inklayer_tpu_torch.scripts import train as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = cli.parse_args(["--task", "sam", "--synthetic", "2"])
+    t = cli.make_task("sam", *cli.task_config(args),
+                      np.random.default_rng(args.seed))
+    samples = cli.load_samples(args, t)
+    batches = {1: next(cli.batches(samples[:1], 1)),
+               2: next(cli.batches(samples, 2))}
+    live = copy.deepcopy(base)
+    live_sam_logits(live)
+    meshes = [((1, 1, 2), 1), ((2, 1, 1), 2)]
+    if probe["all_gather_into_tensor"] == probe["reduce_scatter_tensor"] \
+            == "ok":
+        meshes.append(((1, 2, 1), 1))
+
+    def step(shape, b):
+        model = copy.deepcopy(live).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(t.loss_fn, model, mesh=shape,
+                          optimizer=lambda ps: adamw(ps, args.lr),
+                          max_grad_norm=1.0)
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(batches[b]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out = {"mesh": list(shape) if shape else None, "batch": b,
+               "loss": loss, "grad_norm": float(trainer.grad_norm),
+               "ms": ms, "peak_gib": torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               "launches": sum(_kernels.launch_counts().values())}
+        del trainer, model
+        torch.cuda.empty_cache()
+        return out
+
+    refs = {}
+    if dist.get_rank() == 0:
+        refs = {b: step(None, b) for b in (1, 2)}
+    dist.barrier()
+    steps = []
+    for shape, b in meshes:
+        steps.append(step(shape, b))
+        dist.barrier()
+    return {"refs": refs, "steps": steps}
+
+
+def _rank_main(out_dir: str) -> None:
+    """One rank of phase 12's main job: the backend's collectives, the
+    tp=2 encode, the dp=2 detect, the training steps."""
+    import torch
+    import torch.distributed as dist
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.mesh import init_distributed
+    from inklayer_tpu_torch.scripts import train as cli
+
+    dev = init_distributed()
+    _kernels.lib()
+    if _kernels.build_seconds is not None:
+        raise AssertionError("a rank ran nvcc: phase 1's library was not "
+                             "found")
+    res = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": str(dev), "probe": _probe_collectives(dev)}
+    if res["probe"]["all_reduce"] != "ok":
+        raise AssertionError(f"backend {res['backend']}: all_reduce of "
+                             f"CUDA tensors: {res['probe']['all_reduce']}")
+    args = cli.parse_args(["--task", "sam"])
+    cfg, size = cli.task_config(args)
+    t = cli.make_task("sam", cfg, size, np.random.default_rng(args.seed))
+    t0 = time.perf_counter()
+    base = cli.init_model(t, "cpu", args.seed)
+    res["build_s"] = time.perf_counter() - t0
+    res["sam"] = _mesh_tp_encode(dev, base, size)
+    res["dinov2"] = _mesh_tp_dinov2(dev)
+    res["gdino"] = _mesh_dp_detect(dev)
+    res["train"] = _mesh_train(dev, base, res["probe"])
+    with open(os.path.join(out_dir, f"rank{res['rank']}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _mesh_cli(card: str) -> None:
+    """The train CLI under torchrun on the card (GroundingDINO at full
+    width, dp=2, a checkpoint), then one process resuming it."""
+    import re
+
+    import torch
+
+    from inklayer_tpu_torch.io.checkpoint import load_params
+
+    ckpt = os.path.join(WORK, "mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--task", "gdino", "--synthetic", "2", "--batch", "2"]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(MESH_RANKS), "-m",
+         "inklayer_tpu_torch.scripts.train", *base, "--dp", str(MESH_RANKS),
+         "--steps", "3", "--ckpt", ckpt, "--ckpt_every", "2"],
+        cwd=REPO, capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"torchrun train CLI exit {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    for line in res.stdout.splitlines():
+        log(f"    {line}")
+    losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"step +(\d+) +loss (\S+)", res.stdout)}
+    if sorted(os.listdir(ckpt)) != ["step_2", "step_3"] or \
+            sorted(losses) != [1, 3]:
+        raise AssertionError(f"torchrun train CLI: {os.listdir(ckpt)}, "
+                             f"{losses}")
+    step2 = os.path.join(ckpt, "step_2")
+    saved = load_params(step2)
+    resumed, _ = _cli_losses(base + ["--steps", "0", "--resume", step2])
+    for k, v in resumed.model.state_dict().items():
+        if not torch.equal(saved[k], v.cpu()):
+            raise AssertionError(f"resume: {k} differs from the mesh's "
+                                 f"checkpoint")
+    del resumed
+    _, again = _cli_losses(base + ["--steps", "1", "--resume", step2])
+    if not _rel(again[1], losses[3]) <= 1e-5:
+        raise AssertionError(f"resumed step's loss {again[1]}, the mesh's "
+                             f"third step's {losses[3]}")
+    torch.cuda.empty_cache()
+    log(f"  train CLI under torchrun (gdino, full width, dp=2, 3 steps) "
+        f"[{card}]: {wall:.1f} s; the whole-model checkpoint after step 2 "
+        f"resumed in one process exactly; its step's loss {again[1]} "
+        f"against the mesh's third step's {losses[3]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _mesh_report(card: str, ranks: list, main_s: float) -> dict:
+    """Phase 12's checks of the main job's ranks; returns their launches
+    summed over the ranks."""
+    counts = {}
+    for res in ranks:
+        sam, gd, vit = res["sam"], res["gdino"], res["dinov2"]
+        log(f"  rank {res['rank']} [{card}]: SAM ViT-H 1024² bf16 tp=2 "
+            f"encode {tuple(sam['shape'])}, relative L2 {sam['rel_l2']:.3g} "
+            f"to the single-process encode (limit {MESH_SAM_REL_L2}); to "
+            f"the fp32 plain encode: tp=2 {sam['tp_to_fp32']:.3g}, single "
+            f"process {sam['single_to_fp32']:.3g}; "
+            f"launches {sam['counts']}; {sam['tp_ms']:.1f} ms (single "
+            f"process {sam['single_ms']:.1f} ms, both ranks on one card); "
+            f"DINOv2 ViT-B 518² bf16 tp=2 tapped features, relative L2 "
+            f"{vit['rel_l2']:.3g} (limit {MESH_DINOV2_REL_L2}), launches "
+            f"{vit['counts']}; GDINO 800² bf16 dp=2: boxes "
+            f"{gd['boxes_rel_l2']:.3g}, finite logits "
+            f"{gd['logits_rel_l2']:.3g} to its rows of the batched forward "
+            f"(limit {MESH_GDINO_REL_L2}), equal to its image alone in one "
+            f"process: {gd['equal_alone']}; launches {gd['counts']}")
+        if sam["counts"] != EXPECTED_TP_ENCODE or not sam["finite"] or \
+                sam["rel_l2"] > MESH_SAM_REL_L2:
+            raise AssertionError(f"rank {res['rank']} tp=2 SAM encode: "
+                                 f"{sam}")
+        if vit["counts"] != vit["single_counts"] or \
+                vit["counts"].get("flash_attention/d64") != 12 or \
+                not vit["finite"] or vit["rel_l2"] > MESH_DINOV2_REL_L2:
+            raise AssertionError(f"rank {res['rank']} tp=2 DINOv2: {vit}")
+        if gd["counts"] != gd["batched_counts"] or \
+                gd["counts"].get("ms_deform_attn") != 12 or \
+                not gd["same_finite"] or not gd["equal_alone"] or \
+                max(gd["boxes_rel_l2"], gd["logits_rel_l2"]) > \
+                MESH_GDINO_REL_L2:
+            raise AssertionError(f"rank {res['rank']} dp=2 GDINO: {gd}")
+        _add_counts(counts, sam["counts"])
+        _add_counts(counts, vit["counts"])
+        _add_counts(counts, gd["counts"])
+
+    refs = {int(k): v for k, v in ranks[0]["train"]["refs"].items()}
+    limit = TRAIN_REL_TOL["sam"]
+    for res in ranks:
+        for st in res["train"]["steps"]:
+            ref = refs[st["batch"]]
+            errs = (_rel(st["loss"], ref["loss"]),
+                    _rel(st["grad_norm"], ref["grad_norm"]))
+            log(f"  rank {res['rank']} train SAM ViT-H fp32 over "
+                f"{tuple(st['mesh'])}, batch {st['batch']} [{card}]: loss "
+                f"{st['loss']!r}, grad norm {st['grad_norm']!r}; against "
+                f"one process (loss {ref['loss']!r}, grad norm "
+                f"{ref['grad_norm']!r}, {ref['ms']:.1f} ms, "
+                f"{ref['peak_gib']:.2f} GiB): relative {errs[0]:.3g}, "
+                f"{errs[1]:.3g} (limits {limit[0]}, {limit[1]}); "
+                f"{st['ms']:.1f} ms per step, peak {st['peak_gib']:.2f} GiB "
+                f"on this rank; {st['launches']} kernel launches")
+            if not (errs[0] <= limit[0] and errs[1] <= limit[1]) or \
+                    st["launches"]:
+                raise AssertionError(f"rank {res['rank']} train step over "
+                                     f"{st['mesh']}: {st}, one process "
+                                     f"{ref}")
+    probe = ranks[0]["probe"]
+    shapes = [tuple(st["mesh"]) for st in ranks[0]["train"]["steps"]]
+    if (1, 2, 1) not in shapes:
+        log(f"  (1, 2, 1) not run: {ranks[0]['backend']} on CUDA tensors: "
+            f"{probe['all_gather_into_tensor']}; "
+            f"{probe['reduce_scatter_tensor']}")
+    log(f"  main job: {main_s:.1f} s (SAM placeholders drawn in "
+        f"{ranks[0]['build_s']:.1f} s per rank)")
+
+    return counts
+
+
+def phase_mesh(card: str) -> dict:
+    """Two ranks on the one card: the backend probe, the tp=2 SAM encode
+    and dp=2 detect at full width with their launches, the dry run, the
+    training steps against one process, the train CLI under torchrun."""
+    import torch
+
+    from inklayer_tpu_torch.parallel import dryrun
+    from inklayer_tpu_torch.parallel.mesh import backend_for, spawn
+
+    torch.cuda.empty_cache()
+    me = [os.path.abspath(__file__), "--mesh-rank"]
+    t0 = time.perf_counter()
+    try:
+        outs = spawn(MESH_RANKS, me + ["nccl"], 120, cpu=False)
+        nccl = f"carried an all_reduce: {outs[0].strip()[-200:]}"
+    except RuntimeError as e:  # the probe's reading
+        lines = [l.strip() for l in str(e).splitlines()
+                 if "duplicate" in l.lower()] or \
+            [l.strip() for l in str(e).splitlines() if "nccl" in l.lower()]
+        nccl = "refused: " + (lines[0][:300] if lines else
+                              str(e).splitlines()[0])
+    rule = backend_for("cuda", MESH_RANKS, torch.cuda.device_count())
+    log(f"  backend probe, {MESH_RANKS} ranks on {torch.cuda.device_count()} "
+        f"card(s) [{card}]: nccl {nccl} ({time.perf_counter() - t0:.1f} s)")
+
+    out_dir = os.path.join(WORK, "mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    spawn(MESH_RANKS, me + ["main", out_dir], MESH_TIMEOUT_S, cpu=False)
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    main_s = time.perf_counter() - t0
+    probe = ranks[0]["probe"]
+    log(f"  rule (parallel/mesh.py backend_for): {MESH_RANKS} ranks, "
+        f"{torch.cuda.device_count()} card -> {rule}; the ranks ran "
+        f"{ranks[0]['backend']}; {rule} on CUDA tensors: " + ", ".join(
+            f"{k} {v}" for k, v in probe.items()))
+    if ranks[0]["backend"] != rule:
+        raise AssertionError(f"the ranks ran {ranks[0]['backend']}, the "
+                             f"rule says {rule}")
+
+    counts = _mesh_report(card, ranks, main_s)
+
+    t0 = time.perf_counter()
+    line = dryrun.dryrun_multichip(MESH_RANKS, timeout=MESH_TIMEOUT_S)
+    log(f"  {line} [{card}] ({time.perf_counter() - t0:.1f} s)")
+    _mesh_cli(card)
+    return {"launches": counts, "probe": probe, "nccl": nccl,
+            "train": ranks[0]["train"]}
+
+
 def ptxas_entries(log_text: str) -> dict:
     """{mangled kernel name: {"regs", "stack", "spill_stores", "spill_loads",
     "smem"}} from nvcc's ``-Xptxas -v`` messages."""
@@ -2962,6 +3487,13 @@ def kernel_resources(sources=None) -> None:
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--mesh-rank":
+        sys.path.insert(0, REPO)
+        if sys.argv[2] == "nccl":
+            _rank_nccl()
+        else:
+            _rank_main(sys.argv[3])
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA card")
@@ -3038,6 +3570,11 @@ def main() -> int:
     train_res = phase_train(card, slice_res["launches"])
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 12: the mesh, {MESH_RANKS} ranks on one card [{card}]")
+    t0 = time.perf_counter()
+    mesh_res = phase_mesh(card)
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -3048,9 +3585,9 @@ def main() -> int:
             # cases; launches: the last timed runs of phases 3 and 5, the
             # serving run of phase 6, the timed sweeps of phase 7, the
             # convolution's entry point (phase 8), the timed generate
-            # of phase 9, phase 10's checked runs and calls and phase
-            # 11's eval CLI and exported decoder (the train steps launch
-            # none)
+            # of phase 9, phase 10's checked runs and calls, phase 11's
+            # eval CLI and exported decoder (the train steps launch none)
+            # and phase 12's tp=2 encodes and dp=2 detects on both ranks
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
@@ -3060,7 +3597,8 @@ def main() -> int:
             + conv_counts.get(name, 0)
             + sdxl_res["launches"].get(name, 0)
             + prompts_res["launches"].get(name, 0)
-            + train_res["launches"].get(name, 0),
+            + train_res["launches"].get(name, 0)
+            + mesh_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

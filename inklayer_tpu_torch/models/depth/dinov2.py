@@ -8,6 +8,10 @@ through :func:`inklayer_tpu_torch.ops.attention.attention`, which sends the
 on the card; the LayerNorms of >= 512 rows go to the LayerNorm kernel; the
 MLP is unfused, as in the JAX package.  Parameter names follow the
 reference checkpoint (``pretrained.blocks.{i}.attn.qkv`` ...).
+
+Tensor parallelism (:meth:`Block.shard_tp`, ``parallel/tp.py``): each
+rank keeps its heads of ``qkv`` / ``proj`` and its hidden units of the
+MLP; both outputs are summed over the ranks before LayerScale.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from inklayer_tpu_torch.config import DepthConfig
 from inklayer_tpu_torch.nn.layers import MLP, LayerNorm, PatchEmbed
 from inklayer_tpu_torch.ops.attention import attention
 from inklayer_tpu_torch.ops.image import resize
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
+                                            row_linear, shard_column,
+                                            shard_row)
 
 
 class LayerScale(nn.Module):
@@ -42,6 +49,8 @@ class Block(nn.Module):
                  mlp_ratio: float = 4.0):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.tp = None
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim)
         self.ls1 = LayerScale(dim, layerscale_init)
@@ -49,13 +58,28 @@ class Block(nn.Module):
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, names=("fc1", "fc2"))
         self.ls2 = LayerScale(dim, layerscale_init)
 
+    def shard_tp(self, tp) -> dict:
+        """Keep this rank's heads and MLP hidden units (``num_heads``
+        becomes the local count); returns the tp-sharded parameters'
+        layouts."""
+        if self.num_heads % tp.size:
+            raise ValueError(f"{self.num_heads} heads do not split over "
+                             f"tp={tp.size}")
+        self.tp = tp
+        self.num_heads //= tp.size
+        return {**prefixed("attn.qkv",
+                           shard_column(self.attn.qkv, tp, groups=3)),
+                **prefixed("attn.proj", shard_row(self.attn.proj, tp)),
+                **prefixed("mlp", self.mlp.shard_hidden(tp))}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        heads = self.num_heads
-        qkv = self.attn.qkv(self.norm1(x)).reshape(b, n, 3, heads, c // heads)
+        b, n, _ = x.shape
+        heads, hd = self.num_heads, self.head_dim
+        qkv = self.attn.qkv(copy_to_tp(self.norm1(x), self.tp)).reshape(
+            b, n, 3, heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (b, heads, n, hd)
-        out = attention(q, k, v).transpose(1, 2).reshape(b, n, c)
-        x = x + self.ls1.gamma * self.attn.proj(out)
+        out = attention(q, k, v).transpose(1, 2).reshape(b, n, heads * hd)
+        x = x + self.ls1.gamma * row_linear(out, self.attn.proj, self.tp)
         return x + self.ls2.gamma * self.mlp(self.norm2(x))
 
 

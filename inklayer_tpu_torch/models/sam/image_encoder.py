@@ -9,6 +9,13 @@ attention op, which launches the ``relpos_attention`` kernel on the card.
 The residual stream stays token-major (B, N, C) with the JAX package's
 pending-residual pairs: block i's MLP output is added inside block i+1's
 first LayerNorm.
+
+Tensor parallelism (:meth:`Block.shard_tp`, ``parallel/tp.py``): each
+rank keeps its heads of ``qkv`` / ``proj`` and its hidden units of the
+MLP.  The attention output is summed over the ranks before ``norm2`` and
+the MLP output before it becomes the next block's pending residual, so no
+partial sum reaches a LayerNorm.  ``rel_pos_h`` / ``rel_pos_w`` (per head
+dim) stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +29,9 @@ from torch import nn
 from inklayer_tpu_torch.nn.layers import (MLP, LayerNorm, PatchEmbed,
                                           window_partition, window_unpartition)
 from inklayer_tpu_torch.ops.attention import rel_terms, relpos_attention
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
+                                            row_linear, shard_column,
+                                            shard_row)
 
 
 class Attention(nn.Module):
@@ -31,8 +41,9 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int]):
         super().__init__()
         self.num_heads = num_heads
-        head_dim = dim // num_heads
+        self.head_dim = head_dim = dim // num_heads
         self.scale = head_dim ** -0.5
+        self.tp = None
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1,
@@ -40,21 +51,33 @@ class Attention(nn.Module):
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1,
                                                   head_dim))
 
+    def shard_heads(self, tp) -> dict:
+        """Keep this rank's heads (``num_heads`` becomes the local count)."""
+        if self.num_heads % tp.size:
+            raise ValueError(f"{self.num_heads} heads do not split over "
+                             f"tp={tp.size}")
+        self.tp = tp
+        self.num_heads //= tp.size
+        return {**prefixed("qkv", shard_column(self.qkv, tp, groups=3)),
+                **prefixed("proj", shard_row(self.proj, tp))}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
-        heads = self.num_heads
-        hd = c // heads
+        b, h, w, _ = x.shape
+        heads, hd = self.num_heads, self.head_dim
         n = h * w
-        qkv = self.qkv(x).reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(copy_to_tp(x, self.tp)).reshape(
+            b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # (b, heads, n, hd)
         # bias terms from UNSCALED q (the reference scales q @ k only)
         rel_h, rel_w = rel_terms(q.reshape(b, heads, h, w, hd),
-                                 self.rel_pos_h, self.rel_pos_w)
+                                 copy_to_tp(self.rel_pos_h, self.tp),
+                                 copy_to_tp(self.rel_pos_w, self.tp))
         fold = lambda t, d: t.reshape(b * heads, n, d).contiguous()
         out = relpos_attention(fold(q, hd), fold(k, hd), fold(v, hd),
                                fold(rel_h, h), fold(rel_w, w), self.scale)
         out = out.reshape(b, heads, h, w, hd).permute(0, 2, 3, 1, 4)
-        return self.proj(out.reshape(b, h, w, c))
+        return row_linear(out.reshape(b, h, w, heads * hd), self.proj,
+                          self.tp)
 
 
 class Block(nn.Module):
@@ -69,6 +92,12 @@ class Block(nn.Module):
             (window_size, window_size) if window_size > 0 else input_size)
         self.norm2 = LayerNorm(dim)
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, fused=True)
+
+    def shard_tp(self, tp) -> dict:
+        """The block's tp plan: heads of ``attn``, hidden units of ``mlp``;
+        returns the tp-sharded parameters' layouts."""
+        return {**prefixed("attn", self.attn.shard_heads(tp)),
+                **prefixed("mlp", self.mlp.shard_hidden(tp))}
 
     def forward(self, x: torch.Tensor, delta: torch.Tensor):
         """Pending-residual pair: returns (x + delta + attn, mlp_out) with

@@ -17,6 +17,9 @@ from inklayer_tpu_torch.ops.mlp import mlp_gelu
 from inklayer_tpu_torch.ops.norm import (layernorm_2d, layernorm_2d_plain,
                                          layernorm_residual_2d,
                                          layernorm_residual_2d_plain)
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
+                                            reduce_from_tp, row_linear,
+                                            shard_column, shard_row)
 
 
 class LayerNorm(nn.Module):
@@ -67,7 +70,13 @@ class MLP(nn.Module):
 
     ``fused=True`` sends exact-GELU bf16 calls through the ``mlp_gelu``
     kernel op when the JAX package's gate holds (nn/layers.py:57-61): C and
-    out % 128 == 0, hidden % 512 == 0, tokens % 512 == 0."""
+    out % 128 == 0, hidden % 512 == 0, tokens % 512 == 0.  The gate reads
+    the rank's hidden width under tensor parallelism: SAM ViT-H's 5120
+    is 2560 at tp=2 (fused) and 1280 at tp=4 (plain).
+
+    :meth:`shard_hidden` keeps this rank's hidden units (the first layer
+    column-parallel, the second row-parallel); the forward then sums the
+    ranks' outputs and adds the second bias once."""
 
     def __init__(self, dim: int, hidden: int, out: int, act: str = "gelu",
                  names: Tuple[str, str] = ("lin1", "lin2"),
@@ -76,23 +85,35 @@ class MLP(nn.Module):
         self.names = names
         self.act = act
         self.fused = fused
+        self.tp = None
         setattr(self, names[0], nn.Linear(dim, hidden))
         setattr(self, names[1], nn.Linear(hidden, out))
+
+    def shard_hidden(self, tp) -> dict:
+        self.tp = tp
+        fc1, fc2 = self.names
+        return {**prefixed(fc1, shard_column(getattr(self, fc1), tp)),
+                **prefixed(fc2, shard_row(getattr(self, fc2), tp))}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc1 = getattr(self, self.names[0])
         fc2 = getattr(self, self.names[1])
+        x = copy_to_tp(x, self.tp)
         c = x.shape[-1]
         tokens = x.numel() // c
         if (self.fused and self.act == "gelu" and x.dtype == torch.bfloat16
                 and c % 128 == 0 and fc2.out_features % 128 == 0
                 and fc1.out_features % 512 == 0 and tokens % 512 == 0):
+            # the kernel adds fc2's bias in its epilogue: on one tp rank
+            b2 = fc2.bias if self.tp is None or self.tp.rank == 0 else \
+                torch.zeros_like(fc2.bias)
             out = mlp_gelu(x.reshape(tokens, c).contiguous(), fc1.weight,
-                           fc1.bias, fc2.weight, fc2.bias)
+                           fc1.bias, fc2.weight, b2)
+            out = reduce_from_tp(out, self.tp)
             return out.reshape(*x.shape[:-1], fc2.out_features)
         h = fc1(x)
         h = F.gelu(h) if self.act == "gelu" else F.relu(h)
-        return fc2(h)
+        return row_linear(h, fc2, self.tp)
 
 
 class MLPBlock(nn.Module):

@@ -13,8 +13,10 @@ One switch overrides the rule: inside :func:`disable_kernels`, CUDA
 tensors take the plain versions too.  It is the JAX package's own training
 rule (``inklayer_tpu.runtime.disable_pallas``): the kernels are
 forward-only and bf16-only, and a training step differentiates its
-forward in float32.  Only :meth:`parallel.train.Trainer.train_step`
-enters it.  It is never entered on a failure or a missing card.
+forward in float32.  :meth:`parallel.train.Trainer.train_step` enters
+it, and the multi-rank dry run (``parallel/dryrun.py``), whose fp32 tiny
+models are below the kernels' shapes, as the JAX dry run's CPU devices
+run XLA.  It is never entered on a failure or a missing card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,17 @@ import contextlib
 import torch
 
 _disable_depth = 0
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
+def _refuse_dtensor(t) -> None:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        raise TypeError(
+            f"a DTensor ({t.placements} over {t.device_mesh}) reached a "
+            f"kernel op: ops take this rank's plain local tensors "
+            f"(parallel/tp.py); a DTensor's data_ptr() is not the shard")
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -31,8 +44,12 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
     All tensors must lie on one device type; anything but CUDA or CPU is
     refused, so no tensor silently takes the plain path on an accelerator
-    the kernels were not written for."""
+    the kernels were not written for.  A DTensor is refused on any device:
+    the kernels read raw pointers, and the ops take local tensors."""
     for t in tensors:  # the launch path: no device objects
+        if type(t) not in _PLAIN:
+            _refuse_dtensor(t)
+    for t in tensors:
         if not t.is_cuda:
             break
     else:

@@ -5,13 +5,21 @@
         --steps 100 --ckpt CKPT_DIR
     python -m inklayer_tpu_torch.scripts.train --task depth --synthetic 8 \
         --steps 3 --cpu
+    torchrun --standalone --nproc_per_node 4 \
+        -m inklayer_tpu_torch.scripts.train --task sam --data DIR \
+        --batch 2 --dp 2 --tp 2 --ckpt CKPT_DIR
 
 Same flags as the JAX CLI, plus ``--models_dir`` (the reference
 checkpoints under the file names ``build.build_pipeline`` reads; a model
 without one gets seeded placeholder params, as there).  It trains on the
 card unless ``--cpu`` is given, in float32, on the plain PyTorch versions
 of every op (:class:`parallel.train.Trainer`).  ``--dp``, ``--fsdp`` and
-``--tp`` above 1 raise: multi-process training is not ported yet.
+``--tp`` make a mesh of dp * fsdp * tp ranks, one process each, under
+``torchrun`` (``WORLD_SIZE`` must be that product); ``--batch`` is the
+global batch.  Rank 0 prints and writes; checkpoints hold the whole
+model (``sharding.full_state_dict``), so a mesh's checkpoint resumes a
+single process and the other way round; ``--resume`` loads before the
+model is sharded.
 
 Data layout (per sample): ``<name>.png`` image plus
   sam:   ``<name>_mask.png`` binary target + ``<name>_boxes.json``
@@ -27,6 +35,7 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import math
 import os
 import time
 from types import SimpleNamespace
@@ -270,13 +279,35 @@ def load_samples(args, t):
     return samples
 
 
-def main(argv=None):
-    from inklayer_tpu_torch.io.checkpoint import load_params, save_params
-    from inklayer_tpu_torch.parallel.train import Trainer, adamw
+def mesh_device(args):
+    """(mesh shape, device, rank) of this process: a mesh of more than one
+    rank must be the world ``torchrun`` launched."""
+    from inklayer_tpu_torch.parallel.mesh import init_distributed
     from inklayer_tpu_torch.runtime import resolve_device
 
+    shape = (args.dp, args.fsdp, args.tp)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"--dp {args.dp} --fsdp {args.fsdp} --tp {args.tp} is a mesh of "
+            f"{math.prod(shape)} ranks, WORLD_SIZE is {world}: launch one "
+            f"process per rank with torchrun --nproc_per_node "
+            f"{math.prod(shape)} -m inklayer_tpu_torch.scripts.train ...")
+    if world == 1:
+        dev = torch.device("cpu") if args.cpu else resolve_device("cuda")
+        return shape, dev, 0
+    dev = init_distributed("cpu" if args.cpu else None)
+    return shape, dev, int(os.environ["RANK"])
+
+
+def main(argv=None):
+    from inklayer_tpu_torch.io.checkpoint import load_params, save_params
+    from inklayer_tpu_torch.parallel.sharding import full_state_dict
+    from inklayer_tpu_torch.parallel.train import Trainer, adamw
+
     args = parse_args(argv)
-    device = torch.device("cpu") if args.cpu else resolve_device("cuda")
+    shape, device, rank = mesh_device(args)
+    say = print if rank == 0 else (lambda *a, **k: None)
     rng = np.random.default_rng(args.seed)
     cfg, size = task_config(args)
     t = make_task(args.task, cfg, size, rng)
@@ -285,24 +316,30 @@ def main(argv=None):
 
     if args.resume:
         load_params(args.resume, template=model)
-        print(f"resumed from {args.resume}")
+        say(f"resumed from {args.resume}")
 
-    trainer = Trainer(t.loss_fn, model, mesh=(args.dp, args.fsdp, args.tp),
-                      optimizer=adamw(model.parameters(), args.lr),
+    trainer = Trainer(t.loss_fn, model, mesh=shape,
+                      optimizer=lambda params: adamw(params, args.lr),
                       max_grad_norm=1.0)
     it = batches(samples, args.batch)
     t0 = time.time()
     for step in range(1, args.steps + 1):
         loss = trainer.train_step(next(it))
         if step == 1 or step % 10 == 0 or step == args.steps:
-            print(f"step {step:5d}  loss {float(loss):.5f}  "
-                  f"({(time.time() - t0) / step:.2f}s/step)", flush=True)
+            say(f"step {step:5d}  loss {float(loss):.5f}  "
+                f"({(time.time() - t0) / step:.2f}s/step)", flush=True)
         if args.ckpt and (step % args.ckpt_every == 0 or step == args.steps):
-            save_params(trainer.model,
-                        os.path.join(args.ckpt, f"step_{step}"))
-    print("done.")
+            sd = trainer.model.state_dict() if trainer.mesh is None else \
+                full_state_dict(trainer.model, trainer.mesh)
+            if rank == 0:
+                save_params(sd, os.path.join(args.ckpt, f"step_{step}"))
+    say("done.")
     return trainer
 
 
 if __name__ == "__main__":
+    import torch.distributed as dist
+
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -252,9 +252,13 @@ def test_clip_by_global_norm_matches_optax(rng):
 
 
 def test_mesh_of_more_than_one_device_raises():
+    """Without a process group, a mesh of one device is the single-process
+    path and a larger one raises the JAX mesh message."""
     model = torch.nn.Linear(2, 2)
-    TT.Trainer(lambda m, b: m(b).sum(), model, mesh=(1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 8a"):
+    assert TT.Trainer(lambda m, b: m(b).sum(), model,
+                      mesh=(1, 1, 1)).mesh is None
+    with pytest.raises(ValueError, match="mesh 2x1x1 needs 2 devices, "
+                                         "have 1"):
         TT.Trainer(lambda m, b: m(b).sum(), model, mesh=(2, 1, 1))
 
 
@@ -525,7 +529,8 @@ def test_cli_synthetic_ckpt_and_resume(tmp_path, capsys, task, size):
 
 
 def test_cli_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 8a"):
+    """--dp 2 in one process (no torchrun) raises, naming torchrun."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main(["--task", "sam", "--synthetic", "1", "--image_size", "64",
                   "--cpu", "--steps", "1", "--dp", "2"])
 
