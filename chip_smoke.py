@@ -111,8 +111,9 @@ Phases, each of which raises on failure (exit code != 0):
              warm-up each, then 3 pairs), keeping the intermediates and
              with ``no_intermediate``: launches exact and equal both ways,
              one read-back wait fewer with the front, bboxes_final.json and
-             every masks_final/ PNG equal, p50 both ways, one traced run
-             each, and the front alone traced; the automatic mask
+             every masks_final/ PNG equal, p50 both ways, and the front
+             alone traced (the traced runs each way were cut to keep the
+             script in its time: phase 3 traces the run); the automatic mask
              generator (``SamAutomaticMaskGenerator.generate``) on the same
              sketch at the reference defaults (32 points per side, 64 a
              batch; a warm-up and a timed call) and with every stage
@@ -158,7 +159,23 @@ Phases, each of which raises on failure (exit code != 0):
              process within ``TRAIN_REL_TOL``, ms and peak memory per
              rank; ``dryrun_multichip(2)``; the train CLI under
              ``torchrun`` (GroundingDINO, dp=2, a checkpoint) resumed in
-             one process.
+             one process; GroundingDINO at 800² and SAM ViT-H's mask
+             decoder on 64 boxes, bf16, over tp=2 (head-parallel: 12
+             MSDA launches per rank at 4 heads), each output's relative
+             L2 to an fp32 plain run within 1.1 times the one-process
+             bf16 result's;
+13. depth  — the depth scripts (``inklayer_tpu_torch/scripts/depth_demo``
+             and ``run_depth``) at full width, Depth-Anything-V2 ViT-L and
+             ViT-S at 518², bf16, seeded placeholders: ``run_images`` on
+             two 750² sketches and on a ``.txt`` list with ``--pred-only
+             --grayscale`` (output sizes checked), exact flash-attention
+             and LayerNorm launches per image, ms per image (p50 of 3 warm
+             runs) and peak memory per encoder; ViT-L at cut depth (4
+             blocks, full width) on the card against the CPU in fp32
+             (relative error 5%, as phase 4); one ``--serve`` request
+             through urllib answered with a PNG of the expected size; the
+             ``run_depth`` CLI on the card as a subprocess; the video path
+             where OpenCV is installed (a line says so where it is not).
 
 Phase 2 also holds the flash attention and LayerNorm kernels at SDXL's
 shapes (head dim 64 over 4096 and 1024 tokens; 8192 x 640 and 2048 x 1280
@@ -657,6 +674,9 @@ def phase_kernels(results: dict) -> None:
                                 1280, True),
                                ("(40000,96)", 40000, 96, False),
                                ("(1370,768) DINOv2", 1370, 768, False),
+                               ("(1370,1024) DINOv2 ViT-L", 1370, 1024,
+                                False),
+                               ("(1370,384) DINOv2 ViT-S", 1370, 384, False),
                                ("(18432,320) UNet level 0", 18432, 320, False),
                                ("(4608,640) UNet level 1", 4608, 640, False),
                                ("(1152,1280) UNet level 2", 1152, 1280,
@@ -704,6 +724,23 @@ def phase_kernels(results: dict) -> None:
             bound(lq * 8 * 16 * (4 * 32 * 2 + 4 * 6),
                   2.0 * s_tot * 256 + 4.0 * lq * 8 * 16 * 3 + 2.0 * lq * 256,
                   PEAK_FP32))
+    # a tp=2 rank of GroundingDINO: its 4 of the 8 heads
+    value_4 = randn(1, s_tot, 4, 32)
+    for case, lq in (("encoder Lq=13294 tp=2 rank (4 heads)", s_tot),
+                     ("decoder Lq=900 tp=2 rank (4 heads)", 900)):
+        loc = (torch.rand(1, lq, 4, 4, 4, 2, generator=gen, device=dev)
+               * 1.2 - 0.1)
+        att = torch.softmax(torch.randn(1, lq, 4, 16, generator=gen,
+                                        device=dev), -1).reshape(1, lq, 4, 4, 4)
+        _kernel_case(
+            results, "ms_deform_attn", case,
+            lambda v: deformable.ms_deform_attn(v, shapes, loc, att),
+            lambda v: deformable.ms_deform_attn_plain(v, shapes, loc, att),
+            [value_4], 1e-2, 2e-2,
+            bound(lq * 4 * 16 * (4 * 32 * 2 + 4 * 6),
+                  2.0 * s_tot * 128 + 4.0 * lq * 4 * 16 * 3 + 2.0 * lq * 128,
+                  PEAK_FP32))
+    del value_4
     # the batched sweep's GroundingDINO at 2 and 4 images: b images' values,
     # queries and outputs in one launch
     for b in (2, 4):
@@ -769,7 +806,9 @@ def phase_kernels(results: dict) -> None:
     # (1, BH, N, D) views (on 3-D inputs it takes its unfused math path).
     for case, bh, n, d in (("(12,1370,64)", 12, 1370, 64),
                            ("(2,70,64) 70 of 128 keys", 2, 70, 64),
-                           ("(6,1370,64) DINOv2 tp=2 rank", 6, 1370, 64),
+                           ("(6,1370,64) ViT-S / ViT-B tp=2 rank", 6, 1370,
+                            64),
+                           ("(16,1370,64) DINOv2 ViT-L", 16, 1370, 64),
                            ("(16,9216,40) UNet level 0", 16, 9216, 40),
                            ("(2,70,40) 70 of 128 keys", 2, 70, 40),
                            ("(16,2304,80) UNet level 1", 16, 2304, 80),
@@ -2170,10 +2209,7 @@ def _front_pairs(card: str, pipe, cfg, sketch: str, no_intermediate: bool):
     """The default run with the device front off and on, in turns: one
     warm-up each, then TIMED_RUNS pairs; launches exact and equal both
     ways, one read-back fewer with the front, and the same final files."""
-    import torch
-
     from inklayer_tpu_torch import _kernels
-    from inklayer_tpu_torch.profiling import device_profile
 
     mode = "no_intermediate" if no_intermediate else "intermediates kept"
     times = {False: [], True: []}
@@ -2213,18 +2249,6 @@ def _front_pairs(card: str, pipe, cfg, sketch: str, no_intermediate: bool):
         f"{[round(t, 1) for t in times[True]]}); read-back waits per run "
         f"off {syncs[False]}, on {syncs[True]}; launches exact and equal "
         f"{counts[True]}; bboxes_final.json and masks_final/ equal")
-    for on in (False, True):
-        pipe.cfg = dataclasses.replace(cfg, device_front=on)
-        prof = device_profile(lambda: (pipe.run(
-            sketch, os.path.join(WORK, "front_traced"),
-            no_intermediate=no_intermediate), torch.cuda.synchronize()))
-        log(f"  traced run, device front {'on' if on else 'off'}, {mode} "
-            f"[{card}]: wall {prof['wall_ms']:.1f} ms, device busy "
-            f"{prof['busy_ms']:.1f} ms, idle share "
-            f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops; "
-            "stages " + ", ".join(f"{k} {v * 1e3:.1f}"
-                                  for k, v in pipe.stage_times.items())
-            + " ms")
     pipe.cfg = cfg
     return {"p50_ms": p50, "launches": counts[True], "syncs": syncs}
 
@@ -2928,6 +2952,11 @@ MESH_TIMEOUT_S = 420
 MESH_SAM_REL_L2 = 2e-2
 MESH_DINOV2_REL_L2 = 3e-3
 MESH_GDINO_REL_L2 = 4e-2
+# the head-parallel GroundingDINO forward and SAM mask decode at tp=2: each
+# output's relative L2 to the fp32 plain run may exceed the one-process bf16
+# result's by at most 10% (a wrong head split or a bias added twice reads
+# O(1) against an error of ~1e-2)
+MESH_TP_ERROR_MARGIN = 1.1
 # per-rank launches of one tp=2 encode: K1 28 + K2 4 (relpos), K3 32 at
 # hidden 2560, K4/K4r as a single encode (66)
 EXPECTED_TP_ENCODE = {"relpos_attention": 32, "mlp_gelu": 32,
@@ -3069,6 +3098,139 @@ def _mesh_tp_dinov2(dev) -> dict:
     torch.cuda.empty_cache()
     return {"rel_l2": rel, "finite": bool(torch.isfinite(out).all()),
             "counts": counts, "single_counts": single}
+
+
+def _detect_inputs(size: int, seed: int):
+    """One seeded 800^2 image, no padding, the train CLI's caption."""
+    import torch
+
+    from inklayer_tpu_torch.models.gdino.bert import subsentence_masks
+    from inklayer_tpu_torch.scripts import train as cli
+
+    attn, pos = subsentence_masks(cli.CAPTION_IDS)
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((1, size, size, 3), generator=gen),
+            torch.zeros((1, size, size), dtype=torch.bool),
+            torch.from_numpy(cli.CAPTION_IDS), torch.from_numpy(attn),
+            torch.from_numpy(pos)]
+
+
+def _tp_errors(names, ref32, single, out) -> dict:
+    """Relative L2 of the one-process bf16 result and of the tp one
+    against the fp32 plain result (finite entries), per output."""
+    import torch
+
+    res = {}
+    for name, r, a, b in zip(names, ref32, single, out):
+        fin = torch.isfinite(r)
+        if not (torch.equal(torch.isfinite(a), fin)
+                and torch.equal(torch.isfinite(b), fin)):
+            raise AssertionError(f"tp {name}: non-finite entries differ")
+        r = r.float()
+        rel = lambda x: float((x[fin].float() - r[fin]).norm()
+                              / r[fin].norm())
+        res[name] = {"single_to_fp32": rel(a), "tp_to_fp32": rel(b),
+                     "tp_to_single": float((b[fin].float() - a[fin].float())
+                                           .norm() / a[fin].float().norm())}
+    return res
+
+
+def _mesh_tp_detect(dev) -> dict:
+    """GroundingDINO SwinT-OGC at 800², one image: the fp32 plain forward
+    (the yardstick), the one-process bf16 forward with kernels, then the
+    model's tp=2 plan and the rank's forward, its launches counted."""
+    import copy
+
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.models.gdino.transformer import MSDeformAttn
+    from inklayer_tpu_torch.parallel.mesh import make_mesh
+    from inklayer_tpu_torch.parallel.sharding import apply_tp
+    from inklayer_tpu_torch.runtime import disable_kernels
+    from inklayer_tpu_torch.scripts import train as cli
+
+    args = cli.parse_args(["--task", "gdino"])
+    cfg, size = cli.task_config(args)
+    t = cli.make_task("gdino", cfg, size, np.random.default_rng(0))
+    base = cli.init_model(t, "cpu", args.seed)
+    x = [a.to(dev) for a in _detect_inputs(size, 14)]
+    with torch.no_grad(), disable_kernels():
+        model = copy.deepcopy(base).to(dev).eval()
+        ref32 = [o.float() for o in model(*x)]
+    del model
+    model = base.to(dev, torch.bfloat16).eval()
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        single = model(*x)
+        torch.cuda.synchronize()
+        single_counts = {k: v for k, v in _kernels.launch_counts().items()
+                         if v}
+        single_ms = cuda_median_ms(lambda: model(*x), iters=3, warmup=1)
+        layout = apply_tp(model, make_mesh(1, 1, MESH_RANKS))
+        heads = sorted({m.n_heads for m in model.modules()
+                        if isinstance(m, MSDeformAttn)})
+        model(*x)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = model(*x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+        t0 = time.perf_counter()
+        model(*x)
+        torch.cuda.synchronize()
+        tp_ms = (time.perf_counter() - t0) * 1e3
+    res = {"errors": _tp_errors(("logits", "boxes"), ref32, single, out),
+           "counts": counts, "single_counts": single_counts,
+           "msda_heads": heads, "sharded": len(layout),
+           "single_ms": single_ms, "tp_ms": tp_ms,
+           "finite_boxes": bool(torch.isfinite(out[1]).all())}
+    del model, base
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_tp_decoder(dev, base) -> dict:
+    """SAM ViT-H's mask decoder on 64 seeded boxes of one encoded image:
+    fp32 plain, one process bf16, then its tp=2 plan (8 heads, 4 a
+    rank)."""
+    import copy
+
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+    from inklayer_tpu_torch.parallel.mesh import make_mesh
+    from inklayer_tpu_torch.parallel.sharding import apply_tp
+    from inklayer_tpu_torch.runtime import disable_kernels
+
+    gen = torch.Generator().manual_seed(15)
+    xy = torch.rand((64, 2), generator=gen) * 700
+    wh = 24 + torch.rand((64, 2), generator=gen) * 300
+    boxes = torch.cat([xy, (xy + wh).clamp(max=1023)], 1).to(dev)
+    with torch.no_grad():
+        sam = copy.deepcopy(base).to(dev, torch.bfloat16).eval()
+        emb = sam.encode(torch.randn((1, 1024, 1024, 3),
+                                     generator=gen).to(dev))
+        with disable_kernels():
+            dec32 = copy.deepcopy(base).to(dev).eval()
+            ref32 = dec32.decode_boxes(emb.float(), boxes)
+        del dec32
+        _kernels.reset_launch_counts()
+        single = sam.decode_boxes(emb, boxes)
+        torch.cuda.synchronize()
+        single_counts = {k: v for k, v in _kernels.launch_counts().items()
+                         if v}
+        layout = apply_tp(sam.mask_decoder, make_mesh(1, 1, MESH_RANKS))
+        _kernels.reset_launch_counts()
+        out = sam.decode_boxes(emb, boxes)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    res = {"errors": _tp_errors(("mask logits", "iou"), ref32, single, out),
+           "counts": counts, "single_counts": single_counts,
+           "sharded": len(layout), "shape": list(out[0].shape)}
+    del sam
+    torch.cuda.empty_cache()
+    return res
 
 
 def _mesh_dp_detect(dev) -> dict:
@@ -3218,6 +3380,8 @@ def _rank_main(out_dir: str) -> None:
     res["sam"] = _mesh_tp_encode(dev, base, size)
     res["dinov2"] = _mesh_tp_dinov2(dev)
     res["gdino"] = _mesh_dp_detect(dev)
+    res["gdino_tp"] = _mesh_tp_detect(dev)
+    res["sam_decoder_tp"] = _mesh_tp_decoder(dev, base)
     res["train"] = _mesh_train(dev, base, res["probe"])
     with open(os.path.join(out_dir, f"rank{res['rank']}.json"), "w") as f:
         json.dump(res, f)
@@ -3275,6 +3439,37 @@ def _mesh_cli(card: str) -> None:
     shutil.rmtree(ckpt, ignore_errors=True)
 
 
+def _tp_report(card: str, res: dict) -> dict:
+    """Phase 12's checks of one rank's head-parallel GroundingDINO detect
+    and SAM mask decode; returns their launches."""
+    counts = {}
+    for what, job in (("GDINO 800² bf16 tp=2 detect", res["gdino_tp"]),
+                      ("SAM ViT-H mask decoder bf16 tp=2, 64 boxes",
+                       res["sam_decoder_tp"])):
+        errs = job["errors"]
+        log(f"  rank {res['rank']} [{card}]: {what}: " + "; ".join(
+            f"{k} relative L2 to fp32 plain: tp {e['tp_to_fp32']:.4g}, "
+            f"one process {e['single_to_fp32']:.4g} (limit x"
+            f"{MESH_TP_ERROR_MARGIN}); tp to one process "
+            f"{e['tp_to_single']:.3g}" for k, e in errs.items())
+            + f"; {job['sharded']} tp-sharded parameters; launches "
+            f"{job['counts']} (one process {job['single_counts']})"
+            + (f"; MSDA heads per rank {job['msda_heads']}; "
+               f"{job['tp_ms']:.1f} ms per rank (one process "
+               f"{job['single_ms']:.1f} ms; both ranks on one card)"
+               if "msda_heads" in job else ""))
+        if job["counts"] != job["single_counts"] or any(
+                e["tp_to_fp32"] > MESH_TP_ERROR_MARGIN
+                * e["single_to_fp32"] for e in errs.values()):
+            raise AssertionError(f"rank {res['rank']} {what}: {job}")
+        _add_counts(counts, job["counts"])
+    gt = res["gdino_tp"]
+    if gt["counts"].get("ms_deform_attn") != 12 or \
+            gt["msda_heads"] != [4] or not gt["finite_boxes"]:
+        raise AssertionError(f"rank {res['rank']} tp=2 GDINO: {gt}")
+    return counts
+
+
 def _mesh_report(card: str, ranks: list, main_s: float) -> dict:
     """Phase 12's checks of the main job's ranks; returns their launches
     summed over the ranks."""
@@ -3312,6 +3507,7 @@ def _mesh_report(card: str, ranks: list, main_s: float) -> dict:
         _add_counts(counts, sam["counts"])
         _add_counts(counts, vit["counts"])
         _add_counts(counts, gd["counts"])
+        _add_counts(counts, _tp_report(card, res))
 
     refs = {int(k): v for k, v in ranks[0]["train"]["refs"].items()}
     limit = TRAIN_REL_TOL["sam"]
@@ -3398,6 +3594,252 @@ def phase_mesh(card: str) -> dict:
     _mesh_cli(card)
     return {"launches": counts, "probe": probe, "nccl": nccl,
             "train": ranks[0]["train"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the depth scripts
+# ---------------------------------------------------------------------------
+
+DEPTH_ENCODERS = ("vitl", "vits")
+
+
+def depth_launches(cfg, images: int = 1) -> dict:
+    """K7 and K4 launches of ``images`` images at the 518² bucket (1370
+    tokens): one flash attention per block (counted in total and at head
+    dim 64); two LayerNorms per block and the final norm at each tap."""
+    return {"flash_attention": images * cfg.depth,
+            "flash_attention/d64": images * cfg.depth,
+            "layernorm": images * (2 * cfg.depth
+                                   + len(cfg.intermediate_layers))}
+
+
+def _counted(fn):
+    """fn()'s result and the kernel launches it made."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels
+
+    _kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _kernels.launch_counts().items() if v}
+
+
+def _multipart(field: str, data: bytes):
+    boundary = "chipsmokeboundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{field}"; filename="x.png"\r\nContent-Type: image/png'
+            f"\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def _depth_serve(card: str, est, sketch: str, want: dict) -> dict:
+    """One POST to the web demo behind a threaded server on 127.0.0.1."""
+    import io
+    import urllib.request
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    from PIL import Image
+
+    from inklayer_tpu_torch.scripts import depth_demo
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    srv = make_server("127.0.0.1", 0, depth_demo.make_app(est),
+                      handler_class=Quiet)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        with open(sketch, "rb") as f:
+            body, ctype = _multipart("image", f.read())
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_port}/depth", data=body,
+            headers={"Content-Type": ctype})
+        t0 = time.perf_counter()
+        (kind, png), counts = _counted(lambda: (
+            lambda r: (r.headers["Content-Type"], r.read()))(
+                urllib.request.urlopen(req, timeout=120)))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join()
+    img = Image.open(io.BytesIO(png))
+    if kind != "image/png" or img.size != (2 * 750 + 50, 750) or \
+            counts != want:
+        raise AssertionError(f"depth --serve: {kind} {img.size}, launches "
+                             f"{counts} (want {want})")
+    log(f"  --serve: one POST answered with a {img.size} PNG in {ms:.1f} ms "
+        f"[{card}], launches {counts}")
+    return counts
+
+
+def _depth_encoder(card: str, encoder: str, src_dir: str,
+                   sketches: list) -> dict:
+    """One encoder through ``depth_demo``: the builds, the two image runs,
+    the timed calls, the web demo; returns the checked runs' launches."""
+    import argparse
+
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch.scripts import depth_demo
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    est = depth_demo.build_estimator(encoder, None, 518, "cuda")
+    build_s = time.perf_counter() - t0
+    cfg = est.cfg
+    total = {}
+    out = os.path.join(WORK, f"depth_{encoder}")
+    shutil.rmtree(out, ignore_errors=True)
+    rgb = np.asarray(Image.open(sketches[0]).convert("RGB"))
+    est.infer_image(rgb)  # warm-up
+    runs = (("dir", dict(img_path=src_dir, pred_only=False, grayscale=False),
+             (2 * 750 + 50, 750)),
+            ("txt --pred-only --grayscale",
+             dict(img_path=src_dir + ".txt",
+                  pred_only=True, grayscale=True), (750, 750)))
+    for what, kw, size in runs:
+        args = argparse.Namespace(outdir=os.path.join(out, what.split()[0]),
+                                  **kw)
+        written, counts = _counted(lambda: depth_demo.run_images(est, args))
+        want = depth_launches(cfg, len(sketches))
+        sizes = [Image.open(p).size for p in written]
+        gray = all(np.ptp(np.asarray(Image.open(p)), axis=-1).max() == 0
+                   for p in written) if kw["grayscale"] else True
+        if len(written) != len(sketches) or set(sizes) != {size} or \
+                counts != want or not gray:
+            raise AssertionError(f"{encoder} run_images ({what}): {written} "
+                                 f"{sizes}, launches {counts} (want {want})")
+        _add_counts(total, counts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        depth = est.infer_image(rgb)
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if depth.shape != (750, 750) or not np.isfinite(depth).all():
+        raise AssertionError(f"{encoder} depth {depth.shape}")
+    log(f"  {encoder} ({cfg.embed_dim} wide, {cfg.depth} blocks, "
+        f"{cfg.num_heads} heads; placeholders built in {build_s:.1f} s) "
+        f"[{card}]: run_images on {len(sketches)} sketches and on a .txt "
+        f"list with --pred-only --grayscale, sizes checked; launches per "
+        f"image {depth_launches(cfg)} exact; infer_image 750² p50 "
+        f"{statistics.median(times):.2f} ms over {TIMED_RUNS} warm runs "
+        f"({', '.join(f'{t:.2f}' for t in times)}), peak memory allocated "
+        f"{peak:.2f} GiB (the weights included, earlier phases' not)")
+    if encoder == "vitl":
+        _add_counts(total, _depth_serve(card, est, sketches[0],
+                                        depth_launches(cfg)))
+    del est
+    torch.cuda.empty_cache()
+    return total
+
+
+def _depth_reference(card: str, sketch: str) -> None:
+    """ViT-L at full width and cut depth (4 blocks): the card in bf16
+    against the CPU in fp32, the depth map and the last tap."""
+    import copy
+
+    import torch
+    from PIL import Image
+
+    from inklayer_tpu_torch.build import init_placeholder_params
+    from inklayer_tpu_torch.config import DepthConfig
+    from inklayer_tpu_torch.models.depth import (DepthAnythingV2,
+                                                 DepthEstimator)
+
+    cfg = dataclasses.replace(DepthConfig.vitl(), depth=4,
+                              intermediate_layers=(0, 1, 2, 3))
+    model = init_placeholder_params(DepthAnythingV2(cfg), 2).eval()
+    live_depth_head(model)
+    rgb = np.asarray(Image.open(sketch).convert("RGB"))
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        t0 = time.perf_counter()
+        m = copy.deepcopy(model).to(dev, dtype)
+        taps = {}
+        m.pretrained.register_forward_hook(
+            lambda mod, i, o: taps.__setitem__("last", o[-1][0]))
+        depth = DepthEstimator(m).infer_image(rgb)
+        out[dev] = {"vitl_cut_depth_750x750": torch.from_numpy(depth),
+                    "vitl_cut_last_tap": taps["last"].float().cpu()}
+        log(f"  ViT-L cut depth on {dev}: {time.perf_counter() - t0:.1f} s")
+        del m
+    for key in out["cpu"]:
+        _rel_check(key, out["cuda"][key], out["cpu"][key])
+
+
+def phase_depth_scripts(card: str) -> dict:
+    """The depth scripts at full width on the card; returns the launches
+    of the checked runs."""
+    import importlib.util
+
+    from PIL import Image
+
+    src = os.path.join(WORK, "depth_src")
+    shutil.rmtree(src, ignore_errors=True)
+    os.makedirs(src)
+    sketches = [os.path.join(src, f"sketch{i}.png") for i in range(2)]
+    for i, p in enumerate(sketches):
+        draw_sketch(p, shift=40 * i)
+    with open(src + ".txt", "w") as f:
+        f.write("\n".join(sketches))
+    total = {}
+    for encoder in DEPTH_ENCODERS:
+        _add_counts(total, _depth_encoder(card, encoder, src, sketches))
+    _depth_reference(card, sketches[0])
+
+    # the CLI as a user runs it: on the card by default
+    out = os.path.join(WORK, "depth_cli")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "inklayer_tpu_torch.scripts.run_depth",
+         "--img-path", src + ".txt", "--encoder", "vitl",
+         "--outdir", out], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    sizes = sorted(Image.open(os.path.join(out, n)).size
+                   for n in os.listdir(out)) if res.returncode == 0 else []
+    if res.returncode != 0 or sizes != [(2 * 750 + 50, 750)] * 2:
+        raise AssertionError(f"run_depth CLI exit {res.returncode} {sizes}:"
+                             f"\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    log(f"  python -m inklayer_tpu_torch.scripts.run_depth --encoder vitl "
+        f"(on the card by default): 2 images in "
+        f"{time.perf_counter() - t0:.1f} s, process start included")
+
+    if importlib.util.find_spec("cv2") is None:
+        log("  video path not run: OpenCV (cv2) is not installed on this "
+            "machine")
+    else:
+        import argparse
+
+        import cv2
+
+        from inklayer_tpu_torch.scripts import depth_demo
+
+        clip = os.path.join(src, "clip.mp4")
+        w = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 5,
+                            (750, 750))
+        for p in sketches:
+            w.write(np.asarray(Image.open(p).convert("RGB"))[:, :, ::-1])
+        w.release()
+        est = depth_demo.build_estimator("vits", None, 518, "cuda")
+        written = depth_demo.run_video(est, argparse.Namespace(
+            video_path=clip, outdir=os.path.join(WORK, "depth_video"),
+            pred_only=False, grayscale=False))
+        cap = cv2.VideoCapture(written[0])
+        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        if n != len(sketches):
+            raise AssertionError(f"run_video wrote {n} frames")
+        log(f"  run_video: {n} frames of {2 * 750 + 50}x750")
+    return {"launches": total}
 
 
 def ptxas_entries(log_text: str) -> dict:
@@ -3575,6 +4017,11 @@ def main() -> int:
     mesh_res = phase_mesh(card)
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 13: the depth scripts, ViT-L and ViT-S [{card}]")
+    t0 = time.perf_counter()
+    depth_res = phase_depth_scripts(card)
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -3586,8 +4033,9 @@ def main() -> int:
             # serving run of phase 6, the timed sweeps of phase 7, the
             # convolution's entry point (phase 8), the timed generate
             # of phase 9, phase 10's checked runs and calls, phase 11's
-            # eval CLI and exported decoder (the train steps launch none)
-            # and phase 12's tp=2 encodes and dp=2 detects on both ranks
+            # eval CLI and exported decoder (the train steps launch none),
+            # phase 12's tp=2 encodes, detects and decodes and dp=2 detects
+            # on both ranks, and phase 13's checked image runs and request
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
@@ -3598,7 +4046,8 @@ def main() -> int:
             + sdxl_res["launches"].get(name, 0)
             + prompts_res["launches"].get(name, 0)
             + train_res["launches"].get(name, 0)
-            + mesh_res["launches"].get(name, 0),
+            + mesh_res["launches"].get(name, 0)
+            + depth_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

@@ -123,6 +123,19 @@ class DepthConfig:
     # metric-depth variant: > 0 switches the head to sigmoid * max_depth
     max_depth: float = 0.0
 
+    @staticmethod
+    def vits() -> "DepthConfig":
+        return DepthConfig(
+            encoder="vits", embed_dim=384, num_heads=6, features=64,
+            out_channels=(48, 96, 192, 384))
+
+    @staticmethod
+    def vitl() -> "DepthConfig":
+        return DepthConfig(
+            encoder="vitl", embed_dim=1024, depth=24, num_heads=16,
+            intermediate_layers=(4, 11, 17, 23), features=256,
+            out_channels=(256, 512, 1024, 1024))
+
 
 @dataclass(frozen=True)
 class DiffusionConfig:

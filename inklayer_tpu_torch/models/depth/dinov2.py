@@ -28,7 +28,7 @@ from inklayer_tpu_torch.ops.attention import attention
 from inklayer_tpu_torch.ops.image import resize
 from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
                                             row_linear, shard_column,
-                                            shard_row)
+                                            shard_row, splits)
 
 
 class LayerScale(nn.Module):
@@ -59,18 +59,18 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim, layerscale_init)
 
     def shard_tp(self, tp) -> dict:
-        """Keep this rank's heads and MLP hidden units (``num_heads``
-        becomes the local count); returns the tp-sharded parameters'
-        layouts."""
-        if self.num_heads % tp.size:
-            raise ValueError(f"{self.num_heads} heads do not split over "
-                             f"tp={tp.size}")
+        """Keep this rank's heads (where tp divides them; ``num_heads``
+        becomes the local count) and MLP hidden units; returns the
+        tp-sharded parameters' layouts."""
+        mlp = prefixed("mlp", self.mlp.shard_hidden(tp))
+        if not splits(self.num_heads, tp):
+            return mlp
         self.tp = tp
         self.num_heads //= tp.size
         return {**prefixed("attn.qkv",
                            shard_column(self.attn.qkv, tp, groups=3)),
                 **prefixed("attn.proj", shard_row(self.attn.proj, tp)),
-                **prefixed("mlp", self.mlp.shard_hidden(tp))}
+                **mlp}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape

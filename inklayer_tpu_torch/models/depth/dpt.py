@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -177,3 +178,11 @@ class DepthEstimator:
         x = resize(x, (bh, bw), "bicubic", antialias=True)
         depth = self.model(x[None])[0]
         return resize_align_corners(depth, (h, w))
+
+    def infer_image(self, image: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8 RGB numpy -> (H, W) float32 relative depth
+        numpy: uploaded to the model's device and read back."""
+        dev = self.model.pretrained.pos_embed.device
+        depth = self.infer_image_device(
+            torch.from_numpy(np.array(image)).to(dev))
+        return depth.float().cpu().numpy()

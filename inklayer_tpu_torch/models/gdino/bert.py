@@ -1,7 +1,14 @@
 """BERT-base text encoder with GroundingDINO's sub-sentence masking (port
 of :mod:`inklayer_tpu.models.gdino.bert`).  Module names follow the
 HuggingFace ``BertModel`` checkpoint (``embeddings.*``,
-``encoder.layer.i.attention.self.query`` ...)."""
+``encoder.layer.i.attention.self.query`` ...).
+
+Tensor parallelism (:meth:`BertLayer.shard_tp`, ``parallel/tp.py``): each
+rank keeps its heads of ``query`` / ``key`` / ``value`` and the matching
+columns of ``attention.output.dense``, and its hidden units of
+``intermediate.dense`` / ``output.dense``; each LayerNorm runs after the
+sum.  (The JAX rules leave q / k / v replicated; the head plan needs them
+split.)"""
 
 from __future__ import annotations
 
@@ -15,6 +22,9 @@ from torch import nn
 from inklayer_tpu_torch.config import BertConfig
 from inklayer_tpu_torch.nn.layers import LayerNorm
 from inklayer_tpu_torch.ops.attention import sdpa
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, ffn, prefixed,
+                                            row_linear, shard_column,
+                                            shard_ffn, shard_row, splits)
 
 
 class _Dense(nn.Module):
@@ -37,14 +47,15 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor):
-        b, n, c = x.shape
+        """x: the (B, N, C) hidden states, copied to the tp ranks."""
+        b, n, _ = x.shape
 
         def heads(y):
             return y.reshape(b, n, self.num_heads, -1).transpose(1, 2)
 
         out = sdpa(heads(self.query(x)), heads(self.key(x)),
                    heads(self.value(x)), mask=attn_mask)
-        return out.transpose(1, 2).reshape(b, n, c)
+        return out.transpose(1, 2).reshape(b, n, -1)
 
 
 class BertAttention(nn.Module):
@@ -54,6 +65,7 @@ class BertAttention(nn.Module):
         setattr(self, "self", BertSelfAttention(cfg))
         self.output = _Dense(cfg.hidden_size, cfg.hidden_size,
                              cfg.layer_norm_eps)
+        self.tp = None  # set where the heads split
 
 
 class BertLayer(nn.Module):
@@ -63,13 +75,34 @@ class BertLayer(nn.Module):
         self.intermediate = _Dense(cfg.hidden_size, cfg.intermediate_size)
         self.output = _Dense(cfg.intermediate_size, cfg.hidden_size,
                              cfg.layer_norm_eps)
+        self.tp = None
+
+    def shard_tp(self, tp) -> dict:
+        """Keep this rank's heads (if tp divides them) and hidden units;
+        returns the tp-sharded parameters' layouts."""
+        self.tp = tp
+        att = self.attention
+        sa = getattr(att, "self")
+        layout = shard_ffn(self.intermediate.dense, self.output.dense, tp,
+                           ("intermediate.dense", "output.dense"))
+        if not splits(sa.num_heads, tp):
+            return layout
+        sa.num_heads //= tp.size
+        for name in ("query", "key", "value"):
+            layout.update(prefixed(f"attention.self.{name}",
+                                   shard_column(getattr(sa, name), tp)))
+        att.tp = tp
+        return {**layout, **prefixed("attention.output.dense",
+                                     shard_row(att.output.dense, tp))}
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor):
         att = self.attention
-        a = att.output.dense(getattr(att, "self")(x, attn_mask))
+        a = row_linear(getattr(att, "self")(copy_to_tp(x, att.tp),
+                                            attn_mask),
+                       att.output.dense, att.tp)
         x = att.output.LayerNorm(x + a)
-        h = F.gelu(self.intermediate.dense(x))
-        return self.output.LayerNorm(x + self.output.dense(h))
+        return self.output.LayerNorm(x + ffn(
+            x, self.intermediate.dense, self.output.dense, self.tp, F.gelu))
 
 
 class BertEmbeddings(nn.Module):

@@ -6,6 +6,11 @@ its -100 attention mask, PatchMerging, and per-output LayerNorms.  Window
 attention at 49 tokens is plain :func:`sdpa`, as the JAX package leaves it
 to XLA.  Checkpoint keys follow the reference (``layers.i.blocks.j``,
 ``layers.i.downsample``, ``norm{i}``).
+
+Tensor parallelism (``parallel/tp.py``): :meth:`WindowAttention.shard_tp`
+keeps the rank's heads of ``qkv`` / ``proj`` and of the bias table (a
+stage whose heads tp does not divide stays whole), :meth:`SwinBlock.shard_tp`
+the rank's hidden units of the MLP.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from inklayer_tpu_torch.config import SwinConfig
 from inklayer_tpu_torch.nn.layers import MLP, LayerNorm, PatchEmbed, \
     resize_pad_mask
 from inklayer_tpu_torch.ops.attention import sdpa
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
+                                            row_linear, shard_column,
+                                            shard_param, shard_row, splits)
 
 
 @functools.lru_cache(maxsize=64)
@@ -59,20 +67,34 @@ class WindowAttention(nn.Module):
         super().__init__()
         self.window = window
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.tp = None
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    def shard_tp(self, tp) -> dict:
+        """Keep this rank's heads (``num_heads`` becomes the local count):
+        ``qkv`` rows, ``proj`` columns and bias-table columns."""
+        if not splits(self.num_heads, tp):
+            return {}
+        self.tp = tp
+        self.num_heads //= tp.size
+        return {**prefixed("qkv", shard_column(self.qkv, tp, groups=3)),
+                **prefixed("proj", shard_row(self.proj, tp)),
+                **shard_param(self, "relative_position_bias_table", tp, 1)}
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """x: (nW*B, win^2, C); mask: (nW, win^2, win^2) additive."""
-        bw, n, c = x.shape
-        hd = c // self.num_heads
+        bw, n, _ = x.shape
+        hd = self.head_dim
         idx = torch.from_numpy(_relative_position_index(self.window)).to(
             x.device)
         bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
             n, n, self.num_heads).permute(2, 0, 1)[None]  # (1, heads, n, n)
-        qkv = self.qkv(x).reshape(bw, n, 3, self.num_heads, hd)
+        qkv = self.qkv(copy_to_tp(x, self.tp)).reshape(bw, n, 3,
+                                                       self.num_heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         if mask is not None:
             nw = mask.shape[0]
@@ -80,7 +102,8 @@ class WindowAttention(nn.Module):
             bias = fb.expand(bw // nw, nw, self.num_heads, n, n).reshape(
                 bw, self.num_heads, n, n)
         out = sdpa(q, k, v, bias=bias, scale=hd ** -0.5)
-        return self.proj(out.transpose(1, 2).reshape(bw, n, c))
+        return row_linear(out.transpose(1, 2).reshape(
+            bw, n, self.num_heads * hd), self.proj, self.tp)
 
 
 class SwinBlock(nn.Module):
@@ -92,6 +115,10 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, window, num_heads, qkv_bias)
         self.norm2 = LayerNorm(dim)
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, names=("fc1", "fc2"))
+
+    def shard_tp(self, tp) -> dict:
+        """The MLP's hidden units (the attention has its own plan)."""
+        return prefixed("mlp", self.mlp.shard_hidden(tp))
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         h, w = hw

@@ -7,6 +7,13 @@ Decoder: query self-attention -> text cross-attention -> deformable
 cross-attention -> FFN, with iterative box refinement through the shared
 ``bbox_embed``.  Both deformable attentions call :func:`ms_deform_attn`,
 which launches the ``ms_deform_attn`` kernel on the card.
+
+Tensor parallelism (``shard_tp``, ``parallel/tp.py``): the deformable
+attention keeps its rank's heads (``value_proj`` and the head-major rows
+of ``sampling_offsets`` / ``attention_weights`` column-parallel,
+``output_proj`` row-parallel; the softmax runs over one head's levels and
+points, so the split is exact), and the kernel runs on the rank's heads;
+each layer's FFN keeps its rank's hidden units.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ from inklayer_tpu_torch.models.gdino.fusion import (BiAttentionBlock,
                                                     TextEnhancerLayer)
 from inklayer_tpu_torch.nn.layers import LayerNorm, MLPBlock
 from inklayer_tpu_torch.ops.deformable import ms_deform_attn
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, ffn, prefixed,
+                                            row_linear, shard_column,
+                                            shard_ffn, shard_row, splits)
 
 
 # ---------------------------------------------------------------------------
@@ -85,27 +95,44 @@ class MSDeformAttn(nn.Module):
                  n_heads: int = 8, n_points: int = 4):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        self.head_dim = d_model // n_heads
+        self.tp = None
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
 
+    def shard_tp(self, tp) -> dict:
+        """Keep this rank's heads (``n_heads`` becomes the local count)."""
+        if not splits(self.n_heads, tp):
+            return {}
+        self.tp = tp
+        self.n_heads //= tp.size
+        layout = {}
+        for name in ("value_proj", "sampling_offsets", "attention_weights"):
+            layout.update(prefixed(name, shard_column(getattr(self, name),
+                                                      tp)))
+        return {**layout,
+                **prefixed("output_proj", shard_row(self.output_proj, tp))}
+
     def forward(self, query, reference_points, value,
                 spatial_shapes: Tuple[Tuple[int, int], ...], value_mask=None):
         """query (B, Lq, C) with pos added; reference_points (B, Lq, L, 2|4)
         in sigmoid space; value (B, Lv, C); value_mask (B, Lv) True = pad."""
-        b, lq, c = query.shape
+        b, lq, _ = query.shape
         lv = value.shape[1]
         h, l, p = self.n_heads, self.n_levels, self.n_points
-        v = self.value_proj(value)
+        query = copy_to_tp(query, self.tp)
+        v = self.value_proj(copy_to_tp(value, self.tp))
         if value_mask is not None:
             v = v.masked_fill(value_mask[..., None], 0.0)
-        v = v.reshape(b, lv, h, c // h).contiguous()
+        v = v.reshape(b, lv, h, self.head_dim).contiguous()
         offsets = self.sampling_offsets(query).reshape(b, lq, h, l, p, 2).float()
         attn = torch.softmax(
             self.attention_weights(query).reshape(b, lq, h, l * p).float(), -1
         ).reshape(b, lq, h, l, p)
-        ref = reference_points.float()
+        # the decoder's reference points carry a gradient (the refined boxes)
+        ref = copy_to_tp(reference_points.float(), self.tp)
         if ref.shape[-1] == 2:
             normalizer = torch.tensor([[w_, h_] for h_, w_ in spatial_shapes],
                                       dtype=torch.float32, device=query.device)
@@ -116,7 +143,7 @@ class MSDeformAttn(nn.Module):
                 offsets / p * ref[:, :, None, :, None, 2:] * 0.5
         out = ms_deform_attn(v, spatial_shapes, loc.contiguous(),
                              attn.contiguous())
-        return self.output_proj(out)
+        return row_linear(out, self.output_proj, self.tp)
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +161,19 @@ class DeformableEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(c.hidden_dim, c.dim_feedforward)
         self.linear2 = nn.Linear(c.dim_feedforward, c.hidden_dim)
         self.norm2 = LayerNorm(c.hidden_dim)
+        self.tp = None
+
+    def shard_tp(self, tp) -> dict:
+        """The FFN's hidden units (the attention has its own plan)."""
+        self.tp = tp
+        return shard_ffn(self.linear1, self.linear2, tp,
+                         ("linear1", "linear2"))
 
     def forward(self, src, pos, reference_points, spatial_shapes, pad_mask):
         attn = self.self_attn(src + pos, reference_points, src, spatial_shapes,
                               pad_mask)
         src = self.norm1(src + attn)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        return self.norm2(src + ffn(src, self.linear1, self.linear2, self.tp))
 
 
 class DecoderLayer(nn.Module):
@@ -156,6 +190,13 @@ class DecoderLayer(nn.Module):
         self.linear1 = nn.Linear(c.hidden_dim, c.dim_feedforward)
         self.linear2 = nn.Linear(c.dim_feedforward, c.hidden_dim)
         self.norm3 = LayerNorm(c.hidden_dim)
+        self.tp = None
+
+    def shard_tp(self, tp) -> dict:
+        """The FFN's hidden units (the attentions have their own plans)."""
+        self.tp = tp
+        return shard_ffn(self.linear1, self.linear2, tp,
+                         ("linear1", "linear2"))
 
     def forward(self, tgt, query_pos, memory, spatial_shapes, pad_mask,
                 reference_points, text, text_mask):
@@ -167,7 +208,7 @@ class DecoderLayer(nn.Module):
         da = self.cross_attn(tgt + query_pos, reference_points, memory,
                              spatial_shapes, pad_mask)
         tgt = self.norm1(tgt + da)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + ffn(tgt, self.linear1, self.linear2, self.tp))
 
 
 # ---------------------------------------------------------------------------

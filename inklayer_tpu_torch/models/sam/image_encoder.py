@@ -31,7 +31,7 @@ from inklayer_tpu_torch.nn.layers import (MLP, LayerNorm, PatchEmbed,
 from inklayer_tpu_torch.ops.attention import rel_terms, relpos_attention
 from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
                                             row_linear, shard_column,
-                                            shard_row)
+                                            shard_row, splits)
 
 
 class Attention(nn.Module):
@@ -52,10 +52,10 @@ class Attention(nn.Module):
                                                   head_dim))
 
     def shard_heads(self, tp) -> dict:
-        """Keep this rank's heads (``num_heads`` becomes the local count)."""
-        if self.num_heads % tp.size:
-            raise ValueError(f"{self.num_heads} heads do not split over "
-                             f"tp={tp.size}")
+        """Keep this rank's heads (``num_heads`` becomes the local count);
+        whole where tp does not divide them."""
+        if not splits(self.num_heads, tp):
+            return {}
         self.tp = tp
         self.num_heads //= tp.size
         return {**prefixed("qkv", shard_column(self.qkv, tp, groups=3)),

@@ -1,6 +1,11 @@
 """SAM mask decoder: TwoWayTransformer + hypernetwork heads (port of
 :mod:`inklayer_tpu.models.sam.mask_decoder`).  A handful of tokens against
-4096 image tokens: plain PyTorch, as the JAX package leaves it to XLA."""
+4096 image tokens: plain PyTorch, as the JAX package leaves it to XLA.
+
+Tensor parallelism (:meth:`AttentionDS.shard_tp`, ``parallel/tp.py``):
+each attention keeps its rank's heads (``q/k/v_proj`` column-parallel,
+``out_proj`` row-parallel); the two-way blocks' MLPs stay whole, as the
+JAX rules have no rule for them."""
 
 from __future__ import annotations
 
@@ -12,6 +17,9 @@ from torch import nn
 
 from inklayer_tpu_torch.nn.layers import MLP, LayerNorm, MLPBlock
 from inklayer_tpu_torch.ops.attention import sdpa
+from inklayer_tpu_torch.parallel.tp import (copy_to_tp, prefixed,
+                                            row_linear, shard_column,
+                                            shard_row, splits)
 
 
 class AttentionDS(nn.Module):
@@ -23,21 +31,37 @@ class AttentionDS(nn.Module):
         super().__init__()
         internal = embed_dim // downsample_rate
         self.num_heads = num_heads
+        self.tp = None
         self.q_proj = nn.Linear(embed_dim, internal)
         self.k_proj = nn.Linear(embed_dim, internal)
         self.v_proj = nn.Linear(embed_dim, internal)
         self.out_proj = nn.Linear(internal, embed_dim)
 
+    def shard_tp(self, tp) -> dict:
+        """Keep this rank's heads (``num_heads`` becomes the local count)."""
+        if not splits(self.num_heads, tp):
+            return {}
+        self.tp = tp
+        self.num_heads //= tp.size
+        layout = {}
+        for name in ("q_proj", "k_proj", "v_proj"):
+            layout.update(prefixed(name, shard_column(getattr(self, name),
+                                                      tp)))
+        return {**layout,
+                **prefixed("out_proj", shard_row(self.out_proj, tp))}
+
     def forward(self, q, k, v):
-        def split(x):
+        def split(x, proj):
+            x = proj(copy_to_tp(x, self.tp))
             b, n, c = x.shape
             return x.reshape(b, n, self.num_heads, c // self.num_heads
                              ).transpose(1, 2)
 
-        out = sdpa(split(self.q_proj(q)), split(self.k_proj(k)),
-                   split(self.v_proj(v)))
+        out = sdpa(split(q, self.q_proj), split(k, self.k_proj),
+                   split(v, self.v_proj))
         b, h, n, d = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(b, n, h * d))
+        return row_linear(out.transpose(1, 2).reshape(b, n, h * d),
+                          self.out_proj, self.tp)
 
 
 class TwoWayAttentionBlock(nn.Module):

@@ -21,10 +21,16 @@ dimension, as the JAX rules do.  :func:`apply_mesh` (the JAX
 ``shard_params``) realises them in PyTorch's idiom:
 
   * tp: the modules that hold heads keep their rank's heads as plain local
-    tensors (``shard_tp`` of SAM's encoder blocks and DINOv2's blocks,
-    ``parallel/tp.py``); every other module stays whole on each tp rank
-    (GroundingDINO's rules shard it over tp in the JAX package; the
-    results are the same);
+    tensors, and the feed-forwards their rank's hidden units (``shard_tp``,
+    ``parallel/tp.py``): SAM's encoder blocks and mask-decoder attentions,
+    DINOv2's blocks, and GroundingDINO's Swin blocks, BERT layers, fusion
+    and text-enhancer attentions, deformable attentions and FFNs.  A
+    module whose head count tp does not divide stays whole on every rank
+    (Swin-T's stage 0 at tp = 2).  Two layouts differ from the JAX rules:
+    BERT's q / k / v split by head (the rules replicate them) and the
+    fusion's ``out_v_proj`` / ``out_l_proj`` row-parallel (the rules'
+    ``[vl]_proj`` makes them column-parallel); the fsdp placement keeps
+    the JAX rule.  SAM's two-way MLPs stay whole (no rule);
   * dp and fsdp: FSDP2 ``fully_shard`` on each block, then on the root,
     over the 2-D ("dp", "fsdp") sub-mesh (HSDP: replicated over dp,
     sharded over fsdp on the rule's fsdp dimension; where the rule has
@@ -228,7 +234,8 @@ def shard_batch(batch: dict, mesh) -> dict:
 def full_state_dict(model: nn.Module, mesh) -> Dict[str, torch.Tensor]:
     """The whole model's ``state_dict`` on rank 0 (CPU tensors in the
     unsharded layout, the format of ``io/checkpoint.py``), ``{}`` on the
-    other ranks; a collective call."""
+    other ranks; a collective call.  Every tp layout (rows, packed q/k/v
+    rows, columns, a bias table's head columns) is gathered back."""
     from torch.distributed.checkpoint.state_dict import (StateDictOptions,
                                                          get_model_state_dict)
 

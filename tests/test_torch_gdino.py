@@ -103,3 +103,55 @@ def test_positive_map_matches_jax():
     np.testing.assert_array_equal(
         create_positive_map(WordPieceTokenizer(), caption, spans, 16),
         jcpm(JT(), caption, spans, 16))
+
+
+def test_fusion_max_is_detached_like_jax():
+    """BiMultiHeadAttention subtracts its logits' global max and each text
+    row's max, then clamps at +/-50k; the JAX package stops both maxima's
+    gradients.  One head of width 2 with identity projections puts the
+    global max at q0.k0 = 1e5 and row 1 at 50005 / 49995, one entry 5
+    inside the clamp and one 5 outside: there the gradient through an
+    undetached max is not a rounding term (it moves the gradient of v0
+    and l0, the argmax logit's inputs, by ~10%), and those gradients must
+    be the JAX ones, within 5e-3 (fp32: row 1's terms nearly cancel, and
+    the fp64 value lies between the two packages' fp32 ones; v1's own
+    gradient is left out, as fp32 leaves it ~7% apart).  An undetached
+    max is 4% off for l0 and 11% for v0."""
+    from inklayer_tpu.models.gdino.fusion import BiMultiHeadAttention as JBi
+    from inklayer_tpu_torch.models.gdino.fusion import BiMultiHeadAttention
+
+    a0, b0 = 400.0, 250.0
+    a1 = 50005.0 / b0
+    q = np.asarray([[a0, 0.0], [a1, 0.0], [3.0, -2.0]], np.float32)
+    v = q * np.float32(2 ** 0.5)  # v_proj is the identity: q = v / sqrt(2)
+    l = np.asarray([[b0, 0.0], [49995.0 / a1, 0.0]], np.float32)
+    eye, zero = np.eye(2, dtype=np.float32), np.zeros(2, np.float32)
+    names = ("v_proj", "l_proj", "values_v_proj", "values_l_proj",
+             "out_v_proj", "out_l_proj")
+    jm = JBi(v_dim=2, l_dim=2, embed_dim=2, num_heads=1)
+    params = {"params": {n: {"kernel": jnp.asarray(eye),
+                             "bias": jnp.asarray(zero)} for n in names}}
+    tm = BiMultiHeadAttention(2, 2, 2, 1)
+    with torch.no_grad():
+        for n in names:
+            getattr(tm, n).weight.copy_(torch.eye(2))
+            getattr(tm, n).bias.zero_()
+    rng = np.random.default_rng(1)
+    rv = rng.standard_normal((1, 3, 2)).astype(np.float32)
+    rl = rng.standard_normal((1, 2, 2)).astype(np.float32)
+
+    def jloss(v_, l_):
+        dv, dl = jm.apply(params, v_, l_)
+        return jnp.sum(dv * rv) + jnp.sum(dl * rl)
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(v[None]),
+                                           jnp.asarray(l[None]))
+    tv = torch.tensor(v[None], requires_grad=True)
+    tl = torch.tensor(l[None], requires_grad=True)
+    dv, dl = tm(tv, tl)
+    (torch.sum(dv * torch.from_numpy(rv))
+     + torch.sum(dl * torch.from_numpy(rl))).backward()
+    for got, w in ((tv.grad, want[0]), (tl.grad, want[1])):
+        w = np.asarray(w)[0, 0]
+        assert np.abs(w).min() > 0.1
+        np.testing.assert_allclose(got[0, 0].numpy(), w, rtol=5e-3)

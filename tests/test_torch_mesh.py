@@ -15,7 +15,15 @@ side in this process:
   (2, 1, 2) and of the depth recipe (DINOv2's tp plan) over (1, 2, 2)
   against the port's single-process Trainer: losses and gradient norms
   rtol 1e-5, each leaf's first-step gradient and each parameter's update
-  by ``test_torch_train.py``'s scheme.
+  by ``test_torch_train.py``'s scheme;
+* the head-parallel plans of GroundingDINO and SAM's mask decoder: a tiny
+  GroundingDINO whose Swin stages 0 and 1 do not split at tp = 4 (stage 0
+  not at tp = 2 either) over (2, 1, 2) and (1, 1, 4) against the JAX
+  forward and the port's one-process forward (``ENCODE``'s limits), its
+  ``full_state_dict`` after the tp = 4 plan against the whole state dict
+  (exactly), SAM's mask decoder over (2, 1, 2) against one process, and
+  one GroundingDINO train step over (2, 1, 2) (each dp group a (1, 1, 2)
+  tp pair) against the port's single process.
 """
 
 import copy
@@ -52,6 +60,7 @@ from tests.test_torch_gdino import gdino_pair
 from tests.test_torch_sam import random_jax_params, sam_pair
 from tests.test_torch_train import (DEPTH_OUT_BIAS, GRAD_ATOL, GRAD_RTOL, LR,
                                     _jax_recipe, _port_state, _stash_grads)
+from tests.torch_mesh_worker import GDINO_IN, GDINO_TP_CFG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODE = dict(atol=2e-5, rtol=1e-5)
@@ -232,19 +241,34 @@ def mesh_job(tmp_path_factory):
     np.savez(os.path.join(root, "detect_in.npz"),
              **dict(zip(("image", "pad", "ids", "attn", "pos"), det_np)))
 
+    # the tp plans' GroundingDINO: 2 images, the second one padded
+    jg_tp = JaxGDINO(GDINO_TP_CFG)
+    tp_np = [t.numpy() for t in dryrun.gdino_inputs(2, 64, rng)]
+    tp_np[1][1, 50:, :] = True
+    tp_in = tuple(jnp.asarray(a.astype(np.int32) if a.dtype == np.int64
+                              else a) for a in tp_np)
+    tp_params = random_jax_params(jg_tp, tuple(a[:1] for a in tp_in), 9,
+                                  std=0.05)
+    tp_state = jax_to_torch_state_dict(flatten_tree(tp_params["params"]),
+                                       GDINO_RULES)
+    _save(os.path.join(root, "gdino_tp.npz"), tp_state)
+    np.savez(os.path.join(root, "detect_tp_in.npz"),
+             **dict(zip(GDINO_IN, tp_np)))
+
     # the train jobs: (1, 2, 2) against the JAX Trainer; (2, 1, 2) and
     # the depth recipe over (1, 2, 2) against the port's single process
     jobs, port = [], {}
     for name, task, mesh, steps in (("sam_122", "sam", (1, 2, 2), 2),
                                     ("sam_212", "sam", (2, 1, 2), 1),
-                                    ("depth_122", "depth", (1, 2, 2), 1)):
+                                    ("depth_122", "depth", (1, 2, 2), 1),
+                                    ("gdino_212", "gdino", (2, 1, 2), 1)):
         jm, args, jloss = _jax_recipe(task)
         params = random_jax_params(jm, args, seed=3)
         if task == "depth":  # test_torch_train.py: clear of the ReLU
             params["params"]["depth_head"]["output_conv2_2"]["bias"] = \
                 np.full((1,), DEPTH_OUT_BIAS, np.float32)
         t, samples = _port_model(task, flatten_tree(params["params"]),
-                                 {"sam": 64, "depth": 56}[task])
+                                 {"sam": 64, "depth": 56, "gdino": 64}[task])
         if task == "depth":
             for s in samples:
                 s["depth"] = s["depth"][:42, :50].copy()
@@ -253,7 +277,7 @@ def mesh_job(tmp_path_factory):
         np.savez(os.path.join(root, f"{name}_batch.npz"), **batch)
         jobs.append({"name": name, "task": task, "mesh": mesh,
                      "steps": steps, "lr": LR,
-                     "size": {"sam": 64, "depth": 56}[task],
+                     "size": {"sam": 64, "depth": 56, "gdino": 64}[task],
                      "params": f"{name}_params.npz",
                      "batch": f"{name}_batch.npz"})
         port[name] = (task, t, params, jloss, batch)
@@ -282,6 +306,9 @@ def mesh_job(tmp_path_factory):
         ref["logits"], ref["boxes"] = map(np.asarray, fwd(
             g_params, *(jnp.asarray(a.astype(np.int32) if a.dtype == np.int64
                                     else a) for a in det_np)))
+        ref["tp_logits"], ref["tp_boxes"] = map(
+            np.asarray, jax.jit(jg_tp.apply)(tp_params, *tp_in))
+        ref["tp_state"] = tp_state
 
         task, t, params, jloss, batch = port["sam_122"]
         mesh = JM.make_mesh(1, 2, 2)
@@ -298,7 +325,7 @@ def mesh_job(tmp_path_factory):
         ref["sam_122"]["before"] = _port_state(task, flatten_tree(
             params["params"]))
 
-        for name in ("sam_212", "depth_122"):
+        for name in ("sam_212", "depth_122", "gdino_212"):
             task, t, params, _, batch = port[name]
             model = copy.deepcopy(t.model)
             before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -321,7 +348,9 @@ def mesh_job(tmp_path_factory):
                      for r in range(4)]
     with open(os.path.join(root, "mesh_errors.json")) as f:
         got["mesh_errors"] = json.load(f)
-    for name in port:
+    for name in list(port) + ["gdino_tp_single", "gdino_tp4",
+                              "gdino_tp4_state", "sam_decoder_tp"] + [
+            f"gdino_tp2_{r}" for r in range(4)]:
         with np.load(os.path.join(root, f"{name}.npz")) as f:
             got[name] = {k: f[k] for k in f.files}
     return ref, got
@@ -394,7 +423,7 @@ def test_trainer_over_122_matches_the_jax_trainer(mesh_job):
                want["before"], want["after"], unclip=max(norm, 1.0))
 
 
-@pytest.mark.parametrize("name", ["sam_212", "depth_122"])
+@pytest.mark.parametrize("name", ["sam_212", "depth_122", "gdino_212"])
 def test_mesh_step_matches_the_single_process_step(mesh_job, name):
     ref, got = mesh_job
     want, mine = ref[name], got[name]
@@ -402,6 +431,94 @@ def test_mesh_step_matches_the_single_process_step(mesh_job, name):
                                rtol=1e-5)
     _hold_step(name, want["losses"], mine, want["grads"], want["before"],
                want["after"])
+
+
+def test_gdino_tp_step_matches_one_process_closely(mesh_job):
+    """The GroundingDINO step over (2, 1, 2): loss and gradient norm within
+    1e-6 of one process (fp32; only the order of the sums differs)."""
+    ref, got = mesh_job
+    want, mine = ref["gdino_212"], got["gdino_212"]
+    np.testing.assert_allclose(float(mine["losses"][0]), want["losses"][0],
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(mine["grad_norm"]), want["grad_norm"],
+                               rtol=1e-6)
+
+
+def _close_detect(got_logits, got_boxes, want_logits, want_boxes):
+    np.testing.assert_allclose(got_boxes, want_boxes, **ENCODE)
+    fin = np.isfinite(want_logits)
+    assert np.array_equal(fin, np.isfinite(got_logits))
+    np.testing.assert_allclose(got_logits[fin], want_logits[fin], **ENCODE)
+
+
+@pytest.mark.parametrize("against", ["jax", "one_process"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_gdino_head_parallel_forward(mesh_job, tp, against):
+    """GroundingDINO over (2, 1, 2) (each rank its dp index's image) and
+    (1, 1, 4) against the JAX forward and the port's one process."""
+    ref, got = mesh_job
+    if against == "jax":
+        want = ref["tp_logits"], ref["tp_boxes"]
+    else:
+        one = got["gdino_tp_single"]
+        want = one["logits"], one["boxes"]
+    if tp == 4:
+        _close_detect(got["gdino_tp4"]["logits"], got["gdino_tp4"]["boxes"],
+                      *want)
+        return
+    for r in range(4):
+        part = got[f"gdino_tp2_{r}"]
+        i = int(part["dp"])
+        _close_detect(part["logits"], part["boxes"], want[0][i:i + 1],
+                      want[1][i:i + 1])
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_gdino_tp_plan_keeps_undivided_stages_whole(mesh_job, tp):
+    """Swin's stages whose heads tp does not divide keep their attention
+    whole (their MLPs split); every other attention splits."""
+    _, got = mesh_job
+    layout = set((got["gdino_tp4"] if tp == 4 else got["gdino_tp2_0"])
+                 ["layout"].tolist())
+    stage = "backbone.0.layers.{}.blocks.0."
+    whole = [0] if tp == 2 else [0, 1]
+    for i in range(4):
+        attn = stage.format(i) + "attn.qkv.weight" in layout
+        assert attn == (i not in whole), (tp, i)
+        assert stage.format(i) + "mlp.fc1.weight" in layout
+        assert (stage.format(i) + "attn.relative_position_bias_table"
+                in layout) == attn
+    for name in ("bert.encoder.layer.0.attention.self.query.weight",
+                 "bert.encoder.layer.0.attention.output.dense.weight",
+                 "bert.encoder.layer.0.output.dense.weight",
+                 "transformer.encoder.fusion_layers.0.attn.out_v_proj.weight",
+                 "transformer.encoder.text_layers.0.self_attn.in_proj_weight",
+                 "transformer.encoder.layers.0.self_attn.sampling_offsets."
+                 "weight",
+                 "transformer.decoder.layers.0.ca_text.out_proj.weight",
+                 "transformer.decoder.layers.0.linear2.weight"):
+        assert name in layout, name
+
+
+def test_full_state_dict_after_the_tp_plan_is_the_whole_one(mesh_job):
+    ref, got = mesh_job
+    sd = got["gdino_tp4_state"]
+    assert set(sd) == set(ref["tp_state"])
+    for k, v in ref["tp_state"].items():
+        assert np.array_equal(sd[k], v.numpy()), k
+
+
+def test_sam_mask_decoder_head_parallel(mesh_job):
+    """SAM's mask decoder over (2, 1, 2): its attentions split (8 heads:
+    4 a rank), its two-way MLPs whole; masks and IoU as in one process."""
+    _, got = mesh_job
+    out = got["sam_decoder_tp"]
+    layout = set(out["layout"].tolist())
+    assert "transformer.layers.0.self_attn.q_proj.weight" in layout
+    assert "transformer.final_attn_token_to_image.out_proj.weight" in layout
+    assert not any(".mlp." in k for k in layout)
+    np.testing.assert_allclose(out["masks"], out["single_masks"], **ENCODE)
+    np.testing.assert_allclose(out["iou"], out["single_iou"], **ENCODE)
 
 
 # ---------------------------------------------------------------------------
