@@ -175,7 +175,18 @@ Phases, each of which raises on failure (exit code != 0):
              (relative error 5%, as phase 4); one ``--serve`` request
              through urllib answered with a PNG of the expected size; the
              ``run_depth`` CLI on the card as a subprocess; the video path
-             where OpenCV is installed (a line says so where it is not).
+             where OpenCV is installed (a line says so where it is not);
+14. bench  — the port's bench (``inklayer_tpu_torch.bench``): ``python -m
+             inklayer_tpu_torch.bench --skip-full --skip-inpaint --iters
+             3`` as a subprocess (every key, a finite p50, the card's
+             name); one ``build_workload`` call at full width with exact
+             launches (``BENCH_LAUNCHES``); ``measure_full_pipeline`` at
+             cut counts (2 runs, one sweep of 2 sketches): every key,
+             device busy ms per image, with and without the blob probe,
+             non-null and below the wall time, ``masks_from_lowres``
+             restored; ``measure_inpaint`` at 2 solver steps;
+             ``scripts/bench_sam_vith.main()``; ``entry()``'s forward
+             with exact launches.
 
 Phase 2 also holds the flash attention and LayerNorm kernels at SDXL's
 shapes (head dim 64 over 4096 and 1024 tokens; 8192 x 640 and 2048 x 1280
@@ -191,10 +202,10 @@ The line before the last is one JSON object with each kernel's route,
 source, the TPU kernel it replaces, launches in the last runs of phases 3
 and 5, the serving run of phase 6, the timed sweeps of phase 7, phase 8,
 the timed call of phase 9, the checked calls of phase 10, phase 11's
-eval CLI and phase 12's sharded encodes and detects (both ranks), error,
-times and bound; the last line is the device record.  ``python3
-chip_smoke.py --mesh-rank ...`` is one rank of phase 12 (started by the
-script itself).  Exits
+eval CLI, phase 12's sharded encodes and detects (both ranks) and phase
+14's checked calls, error, times and bound; the last line is the device
+record.  ``python3 chip_smoke.py --mesh-rank ...`` is one rank of phase
+12 (started by the script itself).  Exits
 non-zero without a card, and when run outside a checkout of the
 repository.
 """
@@ -3841,6 +3852,149 @@ def phase_depth_scripts(card: str) -> dict:
         log(f"  run_video: {n} frames of {2 * 750 + 50}x750")
     return {"launches": total}
 
+# ---------------------------------------------------------------------------
+# phase 14: the bench
+# ---------------------------------------------------------------------------
+
+# launches of one detect+segment call of the bench (``build_workload``) at
+# full width: SAM ViT-H's 32 blocks (relpos attention, MLP), GroundingDINO's
+# 6 + 6 deformable layers, and the LayerNorm kernel wherever rows >= 512 and
+# C % 8 == 0: GroundingDINO 75 (Swin-T 31: the patch embedding, 24 block
+# norms, 3 patch merges, 3 outputs; encoder 6 x 3: the fusion's image norm
+# and the two post-norms; the proposals' norm; decoder 6 x 4 and its final
+# norm; BERT's 4 tokens take the plain version) and SAM's encode and one
+# decode (``sam_layernorm_launches``: 16 boxes, so the query norms' 112
+# rows take the plain version)
+GDINO_LN = 31 + 6 * 3 + 1 + 6 * 4 + 1
+BENCH_LAUNCHES = {"relpos_attention": SAM_BLOCKS, "mlp_gelu": SAM_BLOCKS,
+                  "ms_deform_attn": 12,
+                  "layernorm": GDINO_LN + sam_layernorm_launches(1, 1, 16)}
+# the full pipeline and the inpainting measurement at cut counts (the
+# defaults: 5 runs, 16 sketches x 5 sweeps, 30 steps)
+BENCH_FULL_CUT = {"iters": 2, "n_sweep": 2, "sweeps": 1}
+BENCH_INPAINT_STEPS = 2
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "weights", "card",
+              "power_limit_w")
+BENCH_E2E_KEYS = (
+    "e2e_full_pipeline_p50_ms", "e2e_full_pipeline_min_ms", "e2e_iters",
+    "e2e_sketches_per_sec_per_chip", "e2e_sweep_sketches_per_sec_per_chip",
+    "e2e_sweep_best_sketches_per_sec_per_chip", "syncs_per_img",
+    "device_busy_ms_per_img", "rtt_ms", "rtt_baseline_ms", "host_load_1m",
+    "weather", "cc_cap_hits_per_img_noise", "e2e_blob_probe_p50_ms",
+    "device_busy_ms_per_img_blob", "cc_cap_hits_per_img_blob")
+
+
+def _bench_cli(card: str) -> dict:
+    """``python -m inklayer_tpu_torch.bench`` as a user runs it (on the
+    card by default), the full pipeline and inpainting skipped."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "inklayer_tpu_torch.bench", "--skip-full",
+         "--skip-inpaint", "--iters", "3"], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if res.returncode == 0 and lines else {}
+    missing = [k for k in BENCH_KEYS if k not in line]
+    value = line.get("value")
+    if res.returncode != 0 or missing or not isinstance(value, float) or \
+            not np.isfinite(value) or value <= 0 or \
+            line["card"] not in card or any(k.endswith("_error")
+                                            for k in line):
+        raise AssertionError(f"bench CLI exit {res.returncode}, missing "
+                             f"{missing}: {res.stdout[-2000:]}\n"
+                             f"{res.stderr[-2000:]}")
+    log(f"  python -m inklayer_tpu_torch.bench --skip-full --skip-inpaint "
+        f"--iters 3 ({time.perf_counter() - t0:.1f} s, process start "
+        f"included): {json.dumps(line)}")
+    return line
+
+
+def phase_bench(card: str) -> dict:
+    """The port's bench on the card: the CLI, ``build_workload``'s exact
+    launches, the full pipeline with the blob probe and the inpainting
+    measurement at cut counts, ``bench_sam_vith`` and ``entry()``; returns
+    the launches of the checked calls."""
+    import torch
+
+    from inklayer_tpu_torch import _kernels, bench
+    from inklayer_tpu_torch.build import build_pipeline
+    from inklayer_tpu_torch.config import PipelineConfig
+    from inklayer_tpu_torch.entry import entry
+    from inklayer_tpu_torch.scripts import bench_sam_vith
+
+    total = {}
+    _bench_cli(card)
+
+    fn, g, s, img = bench.build_workload()
+    fn(g, s, img).item()  # warm
+    value, counts = _counted(lambda: fn(g, s, img).item())
+    if counts != BENCH_LAUNCHES or not np.isfinite(value):
+        raise AssertionError(f"build_workload: {value}, launches {counts} "
+                             f"(want {BENCH_LAUNCHES})")
+    _add_counts(total, counts)
+    log(f"  build_workload (full width, bf16): {value:.4f}, launches "
+        f"{counts} exact")
+    del fn, g, s, img
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline(PipelineConfig(), device="cuda",
+                          dtype=torch.bfloat16)
+    full, counts = _counted(lambda: bench.measure_full_pipeline(
+        pipe=pipe, **BENCH_FULL_CUT))
+    missing = [k for k in BENCH_E2E_KEYS if k not in full]
+    busy, blob_busy = (full.get("device_busy_ms_per_img"),
+                       full.get("device_busy_ms_per_img_blob"))
+    if missing or busy is None or blob_busy is None or \
+            not 0 < busy < full["e2e_full_pipeline_p50_ms"] or \
+            not 0 < blob_busy < full["e2e_blob_probe_p50_ms"] or \
+            "masks_from_lowres" in vars(pipe.sam):
+        raise AssertionError(f"measure_full_pipeline: missing {missing}, "
+                             f"{full}; masks_from_lowres restored: "
+                             f"{'masks_from_lowres' not in vars(pipe.sam)}")
+    _add_counts(total, counts)
+    log(f"  measure_full_pipeline({BENCH_FULL_CUT}) "
+        f"({time.perf_counter() - t0:.1f} s, build included) [{card}]: "
+        f"{json.dumps(full)}; masks_from_lowres restored")
+    del pipe
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, num_steps=BENCH_INPAINT_STEPS))
+    inp, counts = _counted(lambda: bench.measure_inpaint(cfg))
+    if not (inp["inpaint_ms_per_sample"] > 0
+            and np.isfinite(inp["inpaint_batch4_scaling"])):
+        raise AssertionError(f"measure_inpaint: {inp}")
+    _add_counts(total, counts)
+    log(f"  measure_inpaint at {BENCH_INPAINT_STEPS} steps "
+        f"({time.perf_counter() - t0:.1f} s, build included) [{card}]: "
+        f"{json.dumps(inp)}")
+    torch.cuda.empty_cache()
+
+    vit, counts = _counted(lambda: bench_sam_vith.main([]))
+    if not (vit["value"] > 0 and vit["device_ms"] and vit["tflop"] > 0):
+        raise AssertionError(f"bench_sam_vith: {vit}")
+    _add_counts(total, counts)
+
+    fwd, args = entry()
+    (logits, iou), counts = _counted(lambda: fwd(*args))
+    want = sam_launches(1, 1)
+    want["layernorm"] = sam_layernorm_launches(1, 1, n=8)
+    if tuple(logits.shape) != (8, 1, 256, 256) or \
+            tuple(iou.shape) != (8, 1) or counts != want or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"entry(): {tuple(logits.shape)} "
+                             f"{tuple(iou.shape)}, launches {counts} "
+                             f"(want {want})")
+    _add_counts(total, counts)
+    log(f"  entry(): SAM ViT-H box-prompted forward, logits "
+        f"{tuple(logits.shape)}, iou {tuple(iou.shape)}, launches {counts} "
+        f"exact")
+    del fwd, args
+    torch.cuda.empty_cache()
+    return {"launches": total}
+
 
 def ptxas_entries(log_text: str) -> dict:
     """{mangled kernel name: {"regs", "stack", "spill_stores", "spill_loads",
@@ -4022,6 +4176,11 @@ def main() -> int:
     depth_res = phase_depth_scripts(card)
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 14: the bench [{card}]")
+    t0 = time.perf_counter()
+    bench_res = phase_bench(card)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
@@ -4035,7 +4194,8 @@ def main() -> int:
             # of phase 9, phase 10's checked runs and calls, phase 11's
             # eval CLI and exported decoder (the train steps launch none),
             # phase 12's tp=2 encodes, detects and decodes and dp=2 detects
-            # on both ranks, and phase 13's checked image runs and request
+            # on both ranks, phase 13's checked image runs and request, and
+            # phase 14's checked calls
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": slice_res["launches"].get(name, 0)
@@ -4047,7 +4207,8 @@ def main() -> int:
             + prompts_res["launches"].get(name, 0)
             + train_res["launches"].get(name, 0)
             + mesh_res["launches"].get(name, 0)
-            + depth_res["launches"].get(name, 0),
+            + depth_res["launches"].get(name, 0)
+            + bench_res["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),

@@ -17,6 +17,10 @@ forward in float32.  :meth:`parallel.train.Trainer.train_step` enters
 it, and the multi-rank dry run (``parallel/dryrun.py``), whose fp32 tiny
 models are below the kernels' shapes, as the JAX dry run's CPU devices
 run XLA.  It is never entered on a failure or a missing card.
+
+The measurement entry points (``bench``, ``entry``,
+``scripts/bench_sam_vith``) build their models with
+:func:`constant_model` in :func:`compute_dtype`.
 """
 
 from __future__ import annotations
@@ -86,3 +90,27 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA device requested but torch.cuda is not "
                            "available")
     return dev
+
+
+PARAM_FILL = 0.01
+
+
+def compute_dtype(device: torch.device) -> torch.dtype:
+    """bf16 on the card, fp32 on the CPU (the JAX bench picks by backend)."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+@torch.no_grad()
+def constant_model(make, device: torch.device,
+                   dtype: torch.dtype) -> torch.nn.Module:
+    """``make()`` run without an initialisation (on the meta device), the
+    module placed on ``device`` in ``dtype``, every floating parameter and
+    buffer ``PARAM_FILL`` (placeholder weights: the repository ships no
+    checkpoints)."""
+    with torch.device("meta"):
+        model = make()
+    model = model.to_empty(device=device).to(dtype)
+    for t in list(model.parameters()) + list(model.buffers()):
+        if t.is_floating_point():
+            t.fill_(PARAM_FILL)
+    return model.eval()

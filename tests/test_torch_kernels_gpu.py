@@ -626,3 +626,18 @@ def test_mask_prompt_convnet_launches_layernorm_once(gen):
     # LN(16) over 2 x 64^2 rows launches; LN(4) takes the plain version
     assert _kernels.LAUNCHES["layernorm"] == before + 1
     torch.testing.assert_close(got.cpu(), want.detach(), atol=1e-3, rtol=1e-3)
+
+
+def test_bench_workload_launches_its_kernels(gen):
+    """Exact launches of one full-width detect+segment call of the bench,
+    the table chip_smoke.py derives (``BENCH_LAUNCHES``)."""
+    from chip_smoke import BENCH_LAUNCHES
+    from inklayer_tpu_torch import bench
+
+    fn, g, s, img = bench.build_workload()
+    fn(g, s, img).item()  # warm: the first call builds the library
+    _kernels.reset_launch_counts()
+    value = fn(g, s, img).item()
+    counts = {k: c for k, c in _kernels.launch_counts().items() if c}
+    assert counts == BENCH_LAUNCHES
+    assert torch.isfinite(torch.tensor(value))
