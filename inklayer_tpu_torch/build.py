@@ -173,40 +173,52 @@ def resolve_diffusion_checkpoints(models_dir: Optional[str]) -> dict:
     return out
 
 
+def diffusion_modules(d) -> dict:
+    """{name: a function that makes the module} of the CLIP text encoder,
+    the UNet, the ControlNet and the VAE of ``d`` (``cfg.diffusion``), in
+    that order."""
+    from inklayer_tpu_torch.models.diffusion import (
+        AutoencoderKL, CLIPTextEncoder, ControlNet, UNet2DCondition)
+    # SD1.5's "attention_head_dim" 8 is its number of heads
+    blocks = dict(block_channels=d.unet_block_channels,
+                  layers_per_block=d.unet_layers_per_block,
+                  num_heads=d.unet_attention_head_dim,
+                  context_dim=d.cross_attention_dim)
+    return {
+        "text": lambda: CLIPTextEncoder(
+            hidden=d.cross_attention_dim,
+            heads=max(1, d.cross_attention_dim // 64),
+            max_len=d.text_maxlen),
+        "unet": lambda: UNet2DCondition(**blocks),
+        "controlnet": lambda: ControlNet(**blocks),
+        "vae": lambda: AutoencoderKL(d.vae_channels, d.latent_channels),
+    }
+
+
+def diffusion_layout(name: str, model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` (the ``name`` module of :func:`diffusion_modules`) in the
+    memory format it runs in: the conv stacks channels-last."""
+    if name == "text":
+        return model
+    return model.to(memory_format=torch.channels_last)
+
+
 def build_diffusion_models(cfg: PipelineConfig, device, dtype: torch.dtype,
                            seed: int = 0,
                            models_dir: Optional[str] = None) -> dict:
     """The CLIP text encoder, the UNet, the ControlNet and the VAE of
-    ``cfg.diffusion``, each from its checkpoint under ``models_dir`` or
-    with placeholder params, on ``device`` in ``dtype`` (the conv stacks
-    channels-last)."""
-    from inklayer_tpu_torch.models.diffusion import (
-        AutoencoderKL, CLIPTextEncoder, ControlNet, UNet2DCondition)
-    d = cfg.diffusion
+    ``cfg.diffusion`` (:func:`diffusion_modules`), each from its checkpoint
+    under ``models_dir`` or with placeholder params, on ``device`` in
+    ``dtype`` (:func:`diffusion_layout`)."""
     dev = resolve_device(device)
     ckpts = resolve_diffusion_checkpoints(models_dir)
-    models = {
-        "text": CLIPTextEncoder(hidden=d.cross_attention_dim,
-                                heads=max(1, d.cross_attention_dim // 64),
-                                max_len=d.text_maxlen),
-        # SD1.5's "attention_head_dim" 8 is its number of heads
-        "unet": UNet2DCondition(block_channels=d.unet_block_channels,
-                                layers_per_block=d.unet_layers_per_block,
-                                num_heads=d.unet_attention_head_dim,
-                                context_dim=d.cross_attention_dim),
-        "controlnet": ControlNet(block_channels=d.unet_block_channels,
-                                 layers_per_block=d.unet_layers_per_block,
-                                 num_heads=d.unet_attention_head_dim,
-                                 context_dim=d.cross_attention_dim),
-        "vae": AutoencoderKL(d.vae_channels, d.latent_channels),
-    }
+    models = {name: make()
+              for name, make in diffusion_modules(cfg.diffusion).items()}
     for i, (name, model) in enumerate(models.items()):
         model = _params(model, name, ckpts[name], models_dir, seed + 3 + i,
                         weights.DIFFUSION_IGNORE)
-        model = model.to(device=dev, dtype=dtype).eval()
-        if name != "text":
-            model = model.to(memory_format=torch.channels_last)
-        models[name] = model
+        models[name] = diffusion_layout(
+            name, model.to(device=dev, dtype=dtype).eval())
     return models
 
 

@@ -17,19 +17,16 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from inklayer_tpu_torch.models.sam.image_encoder import ImageEncoderViT
-from inklayer_tpu_torch.profiling import card_info, device_profile
+from inklayer_tpu_torch.profiling import (PEAK_BF16, card_info, counted_flops,
+                                          device_profile, wall_ms)
 from inklayer_tpu_torch.runtime import (compute_dtype, constant_model,
-                                        disable_kernels, resolve_device)
+                                        resolve_device)
 
-# H100 SXM data sheet, dense bf16 tensor-core rate at 700 W
-PEAK_BF16 = 989e12
 WARM_CALLS = 3
 TIMED_CALLS = 10
 
@@ -48,23 +45,13 @@ def main(argv=None) -> dict:
     def fwd() -> float:
         return model(x).float().sum().item()
 
-    t0 = time.perf_counter()
-    fwd()
-    first_s = time.perf_counter() - t0
-    for _ in range(WARM_CALLS):
-        fwd()
-    ts = []
-    for _ in range(TIMED_CALLS):
-        t0 = time.perf_counter()
-        fwd()
-        ts.append((time.perf_counter() - t0) * 1e3)
+    first_s = wall_ms(fwd, 1)[0] / 1e3
+    wall_ms(fwd, WARM_CALLS)
+    ts = wall_ms(fwd, TIMED_CALLS)
     p50 = float(np.percentile(ts, 50))
     device_ms = device_profile(fwd)["busy_ms"] if dev.type == "cuda" \
         else None  # no device track on the CPU
-    with FlopCounterMode(display=False) as counter, disable_kernels(), \
-            torch.inference_mode():
-        model(x)
-    flops = counter.get_total_flops()
+    flops = counted_flops(lambda: model(x), model)
     card, power = card_info(dev)
     on_card = dev.type == "cuda"  # the peak is the card's
     res = {"metric": "SAM ViT-H encoder forward p50", "value": round(p50, 3),

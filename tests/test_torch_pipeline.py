@@ -81,7 +81,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("slice")
     sketch = _sketch(tmp)
     return (jax_pipe.run(sketch, str(tmp / "jax")),
-            port.run(sketch, str(tmp / "torch")), cfg, port, sketch, tmp)
+            port.run(sketch, str(tmp / "torch")), cfg, port, sketch, tmp,
+            jax_pipe)
 
 
 def test_port_writes_the_detect_segment_outputs(runs):
@@ -175,12 +176,23 @@ def test_segmented_sketch_final_colours_the_port_masks(runs):
 
 
 def test_no_intermediate_keeps_only_the_keep_list(runs):
-    port, sketch, tmp = runs[3:]
+    port, sketch, tmp = runs[3:6]
     out = port.run(sketch, str(tmp / "torch_ni"), no_intermediate=True)
     assert sorted(os.listdir(out)) == sorted(
         set(KEEP_LIST) & set(PORT_OUTPUTS))
     assert sorted(port.stage_times) == sorted(
         ["detect", "segment", "depth", "clean", "nms", "refine", "write"])
+
+
+def test_stage_time_keys_match_jax(runs):
+    """A run's stage_times keys are the JAX StageTimes keys, plus "write":
+    the port also times the run's own host work around its writes and its
+    wait for them, which the JAX runner leaves out."""
+    port, jax_pipe = runs[3], runs[6]
+    assert set(jax_pipe.stage_times.times) == {
+        "detect", "segment", "depth", "clean", "nms", "refine"}
+    assert set(port.stage_times) == set(jax_pipe.stage_times.times) | {
+        "write"}
 
 
 def test_segmented_sketch_colours_the_port_masks(runs):
