@@ -25,6 +25,7 @@ from torch import nn
 from inklayer_tpu_torch.config import DepthConfig
 from inklayer_tpu_torch.models.depth.dinov2 import DinoVisionTransformer
 from inklayer_tpu_torch.ops.image import resize, resize_align_corners
+from inklayer_tpu_torch.spans import span
 
 # [0,1]-scale ImageNet stats (util/transform.py NormalizeImage)
 DEPTH_MEAN = (0.485, 0.456, 0.406)
@@ -172,12 +173,16 @@ class DepthEstimator:
         h, w = image.shape[:2]
         bh, bw = depth_bucket(h, w, self.cfg)
         dev = image.device
-        x = image.float() / 255.0
-        x = (x - torch.tensor(DEPTH_MEAN, device=dev)) \
-            / torch.tensor(DEPTH_STD, device=dev)
-        x = resize(x, (bh, bw), "bicubic", antialias=True)
-        depth = self.model(x[None])[0]
-        return resize_align_corners(depth, (h, w))
+        with span("depth"):
+            with span("depth.preprocess"):
+                x = image.float() / 255.0
+                x = (x - torch.tensor(DEPTH_MEAN, device=dev)) \
+                    / torch.tensor(DEPTH_STD, device=dev)
+                x = resize(x, (bh, bw), "bicubic", antialias=True)
+            with span("depth.forward"):
+                depth = self.model(x[None])[0]
+            with span("depth.resize"):
+                return resize_align_corners(depth, (h, w))
 
     def infer_image(self, image: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8 RGB numpy -> (H, W) float32 relative depth

@@ -18,6 +18,7 @@ reproduce; the tests inject the same noise into both).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional
 
@@ -33,6 +34,7 @@ from inklayer_tpu_torch.models.diffusion.scheduler import (
 from inklayer_tpu_torch.pipeline.inpaint.prepost import (
     finalize_sketch, make_inpaint_condition, postprocess_result,
     preprocess_image, preprocess_mask)
+from inklayer_tpu_torch.spans import span
 
 
 def _nchw(arr: np.ndarray, device) -> torch.Tensor:
@@ -46,6 +48,18 @@ def _to_uint8(out: torch.Tensor) -> np.ndarray:
     as the reference's cast does)."""
     arr = np.nan_to_num(out.permute(0, 2, 3, 1).float().cpu().numpy())
     return (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def stage(pipe, key: str):
+    """``with stage(pipe, key):`` an ``inpaint.<key>`` span of a diffusion
+    pipeline, ended by ``pipe._add_time(key, t0)``: a synchronise of the
+    thread's stream and the stage's seconds added to ``pipe.stage_times``
+    (``profiling.device_profile_stages`` splits a traced call there)."""
+    t0 = time.perf_counter()
+    with span("inpaint." + key):
+        yield
+        pipe._add_time(key, t0)
 
 
 class ControlNetInpaintPipeline:
@@ -77,7 +91,8 @@ class ControlNetInpaintPipeline:
         # the calling thread's stream, not the whole device: work that
         # other threads queued on their own streams need not finish
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            with span("wait"):
+                torch.cuda.current_stream(self.device).synchronize()
         return time.perf_counter()
 
     def _add_time(self, key: str, t0: float) -> float:
@@ -117,44 +132,50 @@ class ControlNetInpaintPipeline:
         ts, a_t, s_t, c_sample, c_x0, c_d = (np.asarray(t) for t in tables)
         cl = torch.channels_last
         bsz = images01.shape[0]
-        t0 = self._sync()
-        masked = (images01 * 2.0 - 1.0) * (masks01 < 0.5)
-        masked_lat = self.vae.encode(masked.contiguous(memory_format=cl))
-        lh, lw = masked_lat.shape[2:]
-        # jax.image.resize "nearest" samples pixel centres: nearest-exact
-        mask_lat = F.interpolate(masks01, size=(lh, lw), mode="nearest-exact")
-        extra = torch.cat([mask_lat.to(masked_lat.dtype), masked_lat], dim=1)
-        extra = torch.cat([extra, extra])
-        emb = torch.cat([text_emb[0:1].expand(bsz, -1, -1),
-                         text_emb[1:2].expand(bsz, -1, -1)])
-        cond2 = torch.cat([controls, controls]).to(self.dtype).contiguous(
-            memory_format=cl)
-        t0 = self._add_time("encode", t0)
+        self._sync()
+        with stage(self, "encode"):
+            masked = (images01 * 2.0 - 1.0) * (masks01 < 0.5)
+            masked_lat = self.vae.encode(masked.contiguous(memory_format=cl))
+            lh, lw = masked_lat.shape[2:]
+            # jax.image.resize "nearest" samples pixel centres:
+            # nearest-exact
+            mask_lat = F.interpolate(masks01, size=(lh, lw),
+                                     mode="nearest-exact")
+            extra = torch.cat([mask_lat.to(masked_lat.dtype), masked_lat],
+                              dim=1)
+            extra = torch.cat([extra, extra])
+            emb = torch.cat([text_emb[0:1].expand(bsz, -1, -1),
+                             text_emb[1:2].expand(bsz, -1, -1)])
+            cond2 = torch.cat([controls, controls]).to(self.dtype) \
+                .contiguous(memory_format=cl)
 
-        latents = noise.float()
-        x0_prev = torch.zeros_like(latents)
-        for i in range(steps):
-            lat_in = torch.cat([latents, latents]).to(self.dtype)
-            t_in = torch.full((2 * bsz,), int(ts[i]), dtype=torch.int32,
-                              device=self.device)
-            down, mid = self.controlnet(
-                lat_in.contiguous(memory_format=cl), t_in, emb, cond2,
-                conditioning_scale=cond_scale)
-            nine = torch.cat([lat_in, extra], dim=1).contiguous(
-                memory_format=cl)
-            eps = self.unet(nine, t_in, emb, down_residuals=down,
-                            mid_residual=mid)
-            eps_u, eps_c = eps[:bsz], eps[bsz:]
-            eps = (eps_u + guidance * (eps_c - eps_u)).float()
-            x0 = (latents - float(s_t[i]) * eps) / float(a_t[i])
-            latents = (float(c_sample[i]) * latents + float(c_x0[i]) * x0
-                       + float(c_d[i]) * (x0 - x0_prev))
-            x0_prev = x0
-        self.stage_times["steps"] = self.stage_times.get("steps", 0) + steps
-        t0 = self._add_time("loop", t0)
-        out = self.vae.decode(latents.contiguous(memory_format=cl))
-        out = torch.clamp(out.float() * 0.5 + 0.5, 0.0, 1.0)
-        self._add_time("decode", t0)
+        with stage(self, "loop"):
+            latents = noise.float()
+            x0_prev = torch.zeros_like(latents)
+            for i in range(steps):
+                with span("inpaint.step"):
+                    lat_in = torch.cat([latents, latents]).to(self.dtype)
+                    t_in = torch.full((2 * bsz,), int(ts[i]),
+                                      dtype=torch.int32, device=self.device)
+                    down, mid = self.controlnet(
+                        lat_in.contiguous(memory_format=cl), t_in, emb,
+                        cond2, conditioning_scale=cond_scale)
+                    nine = torch.cat([lat_in, extra], dim=1).contiguous(
+                        memory_format=cl)
+                    eps = self.unet(nine, t_in, emb, down_residuals=down,
+                                    mid_residual=mid)
+                    eps_u, eps_c = eps[:bsz], eps[bsz:]
+                    eps = (eps_u + guidance * (eps_c - eps_u)).float()
+                    x0 = (latents - float(s_t[i]) * eps) / float(a_t[i])
+                    latents = (float(c_sample[i]) * latents
+                               + float(c_x0[i]) * x0
+                               + float(c_d[i]) * (x0 - x0_prev))
+                    x0_prev = x0
+            self.stage_times["steps"] = self.stage_times.get("steps", 0) \
+                + steps
+        with stage(self, "decode"):
+            out = self.vae.decode(latents.contiguous(memory_format=cl))
+            out = torch.clamp(out.float() * 0.5 + 0.5, 0.0, 1.0)
         return out
 
     def _sample(self, text_emb, image01, mask01, control_img, noise, tables,
@@ -275,13 +296,16 @@ class ControlNetInpaintPipeline:
         ControlNet_inpaint)."""
         def fn(input_image: Image.Image, mask_image: Image.Image):
             t0 = time.perf_counter()
-            original, original_mask = input_image.copy(), mask_image.copy()
-            img = preprocess_image(input_image)
-            msk = preprocess_mask(mask_image)
+            with span("inpaint.prepost"):
+                original, original_mask = (input_image.copy(),
+                                           mask_image.copy())
+                img = preprocess_image(input_image)
+                msk = preprocess_mask(mask_image)
             pre = time.perf_counter() - t0
             out = self.generate(img, msk)
             t0 = time.perf_counter()
-            out = self._finish(out, original, original_mask)
+            with span("inpaint.prepost"):
+                out = self._finish(out, original, original_mask)
             self.stage_times["prepost"] = pre + time.perf_counter() - t0
             return out
 
@@ -291,14 +315,16 @@ class ControlNetInpaintPipeline:
         """Batched :meth:`inpaint_fn`: [(image, mask), ...] -> [PIL]."""
         def fn(pairs):
             t0 = time.perf_counter()
-            originals = [(im.copy(), mk.copy()) for im, mk in pairs]
-            imgs = [preprocess_image(im) for im, _ in pairs]
-            msks = [preprocess_mask(mk) for _, mk in pairs]
+            with span("inpaint.prepost"):
+                originals = [(im.copy(), mk.copy()) for im, mk in pairs]
+                imgs = [preprocess_image(im) for im, _ in pairs]
+                msks = [preprocess_mask(mk) for _, mk in pairs]
             pre = time.perf_counter() - t0
             outs = self.generate_batch(imgs, msks)
             t0 = time.perf_counter()
-            final = [self._finish(out, orig, orig_mask)
-                     for out, (orig, orig_mask) in zip(outs, originals)]
+            with span("inpaint.prepost"):
+                final = [self._finish(out, orig, orig_mask)
+                         for out, (orig, orig_mask) in zip(outs, originals)]
             self.stage_times["prepost"] = pre + time.perf_counter() - t0
             return final
 

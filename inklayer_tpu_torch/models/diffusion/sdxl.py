@@ -35,11 +35,12 @@ from torch import nn
 
 from inklayer_tpu_torch.models.diffusion.clip_text import (CLIPTokenizer,
                                                            _TextModel)
-from inklayer_tpu_torch.models.diffusion.pipeline import _to_uint8
+from inklayer_tpu_torch.models.diffusion.pipeline import _to_uint8, stage
 from inklayer_tpu_torch.models.diffusion.scheduler import (
     DPMSolverMultistepScheduler, solver_tables)
 from inklayer_tpu_torch.models.diffusion.unet import UNet2DCondition
 from inklayer_tpu_torch.models.diffusion.vae import AutoencoderKL
+from inklayer_tpu_torch.spans import span
 
 
 @dataclass(frozen=True)
@@ -136,7 +137,8 @@ class SDXLInpaintPipeline:
 
     def _sync(self) -> float:
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            with span("wait"):
+                torch.cuda.current_stream(self.device).synchronize()
         return time.perf_counter()
 
     def _add_time(self, key: str, t0: float) -> float:
@@ -171,42 +173,47 @@ class SDXLInpaintPipeline:
         ([uncond, cond]).  Returns (3, H, W) in [0, 1]."""
         ts, a_t, s_t, c_sample, c_x0, c_d = (np.asarray(t) for t in tables)
         cl = torch.channels_last
-        t0 = self._sync()
-        img = image01 * 2.0 - 1.0
-        masked = img * (mask01 < 0.5)
-        masked_lat = self.vae.encode(masked.contiguous(memory_format=cl))
-        image_lat = self.vae.encode(img.contiguous(memory_format=cl))
-        lh, lw = masked_lat.shape[2:]
-        # jax.image.resize "nearest" samples pixel centres: nearest-exact
-        mask_lat = F.interpolate(mask01, size=(lh, lw), mode="nearest-exact")
-        extra = torch.cat([mask_lat.to(masked_lat.dtype), masked_lat], dim=1)
-        extra = torch.cat([extra, extra])
-        # strength < 1: start from the noised image latents at t_start
-        latents = (float(a_t[t_start]) * image_lat.float()
-                   + float(s_t[t_start]) * noise.float())
-        t0 = self._add_time("encode", t0)
+        self._sync()
+        with stage(self, "encode"):
+            img = image01 * 2.0 - 1.0
+            masked = img * (mask01 < 0.5)
+            masked_lat = self.vae.encode(masked.contiguous(memory_format=cl))
+            image_lat = self.vae.encode(img.contiguous(memory_format=cl))
+            lh, lw = masked_lat.shape[2:]
+            # jax.image.resize "nearest" samples pixel centres:
+            # nearest-exact
+            mask_lat = F.interpolate(mask01, size=(lh, lw),
+                                     mode="nearest-exact")
+            extra = torch.cat([mask_lat.to(masked_lat.dtype), masked_lat],
+                              dim=1)
+            extra = torch.cat([extra, extra])
+            # strength < 1: start from the noised image latents at t_start
+            latents = (float(a_t[t_start]) * image_lat.float()
+                       + float(s_t[t_start]) * noise.float())
 
-        x0_prev = torch.zeros_like(latents)
-        for idx in range(t_start, steps):
-            lat_in = torch.cat([latents, latents]).to(self.dtype)
-            t_in = torch.full((2,), int(ts[idx]), dtype=torch.int32,
-                              device=self.device)
-            nine = torch.cat([lat_in, extra], dim=1).contiguous(
-                memory_format=cl)
-            eps = self.unet(nine, t_in, context, pooled_text=pooled,
-                            time_ids=time_ids)
-            eps_u, eps_c = eps[0:1], eps[1:2]
-            eps = (eps_u + guidance * (eps_c - eps_u)).float()
-            x0 = (latents - float(s_t[idx]) * eps) / float(a_t[idx])
-            latents = (float(c_sample[idx]) * latents + float(c_x0[idx]) * x0
-                       + float(c_d[idx]) * (x0 - x0_prev))
-            x0_prev = x0
-        self.stage_times["steps"] = self.stage_times.get("steps", 0) \
-            + steps - t_start
-        t0 = self._add_time("loop", t0)
-        out = self.vae.decode(latents.contiguous(memory_format=cl))
-        out = torch.clamp(out[0].float() * 0.5 + 0.5, 0.0, 1.0)
-        self._add_time("decode", t0)
+        with stage(self, "loop"):
+            x0_prev = torch.zeros_like(latents)
+            for idx in range(t_start, steps):
+                with span("inpaint.step"):
+                    lat_in = torch.cat([latents, latents]).to(self.dtype)
+                    t_in = torch.full((2,), int(ts[idx]), dtype=torch.int32,
+                                      device=self.device)
+                    nine = torch.cat([lat_in, extra], dim=1).contiguous(
+                        memory_format=cl)
+                    eps = self.unet(nine, t_in, context, pooled_text=pooled,
+                                    time_ids=time_ids)
+                    eps_u, eps_c = eps[0:1], eps[1:2]
+                    eps = (eps_u + guidance * (eps_c - eps_u)).float()
+                    x0 = (latents - float(s_t[idx]) * eps) / float(a_t[idx])
+                    latents = (float(c_sample[idx]) * latents
+                               + float(c_x0[idx]) * x0
+                               + float(c_d[idx]) * (x0 - x0_prev))
+                    x0_prev = x0
+            self.stage_times["steps"] = self.stage_times.get("steps", 0) \
+                + steps - t_start
+        with stage(self, "decode"):
+            out = self.vae.decode(latents.contiguous(memory_format=cl))
+            out = torch.clamp(out[0].float() * 0.5 + 0.5, 0.0, 1.0)
         return out
 
     def generate(self, image: Image.Image, mask: Image.Image,

@@ -26,9 +26,10 @@ from inklayer_tpu_torch.models.gdino.transformer import (GDinoTransformer,
                                                          sine_pos_embed_hw)
 from inklayer_tpu_torch.nn.layers import (MLPBlock, group_norm_nhwc,
                                           resize_pad_mask)
-from inklayer_tpu_torch.ops.bits import readback
+from inklayer_tpu_torch.ops.bits import readback, to_host
 from inklayer_tpu_torch.ops.image import (pick_bucket, resize_scale,
                                           scale_pad_normalize)
+from inklayer_tpu_torch.spans import span
 
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
@@ -185,14 +186,19 @@ class GDinoDetector:
         c = self.cfg
         cap = self._caption(caption)
         thresh = c.box_threshold if box_threshold is None else box_threshold
-        _, pre, pad_mask = self._preprocess(image)
-        ids, attn, pos = self._tokenize(cap)
-        logits, boxes = self.model(pre[None], pad_mask[None], ids, attn, pos)
-        scores, top_boxes, tok_probs = top_detections(logits, boxes,
-                                                      c.max_boxes)
-        # numpy holds no bf16: widen on the device, as the host path did
-        parts = (scores[0].float(), top_boxes[0].double(),
-                 tok_probs[0].float(), ids[0])
+        with span("detect", images=1):
+            with span("detect.preprocess"):
+                _, pre, pad_mask = self._preprocess(image)
+                ids, attn, pos = self._tokenize(cap)
+            with span("detect.forward"):
+                logits, boxes = self.model(pre[None], pad_mask[None], ids,
+                                           attn, pos)
+                scores, top_boxes, tok_probs = top_detections(
+                    logits, boxes, c.max_boxes)
+                # numpy holds no bf16: widen on the device, as the host
+                # path did
+                parts = (scores[0].float(), top_boxes[0].double(),
+                         tok_probs[0].float(), ids[0])
 
         def finalize_host(host_parts):
             s, b, tl, i = host_parts
@@ -211,33 +217,39 @@ class GDinoDetector:
         cap = self._caption(caption)
         thresh = c.box_threshold if box_threshold is None else box_threshold
         ids, attn, pos = self._tokenize(cap)
-        token_ids = ids[0].cpu().numpy()
-        groups: dict = {}
-        prepped = []
-        for i, image in enumerate(images):
-            bucket, pre, pad = self._preprocess(image)
-            prepped.append((pre, pad))
-            groups.setdefault(bucket, []).append(i)
-        results = [None] * len(images)
-        for idxs in groups.values():
-            b = len(idxs)
+        with span("detect", images=len(images)) as sp:
+            token_ids = to_host(ids[0])
+            groups: dict = {}
+            prepped = []
+            with span("detect.preprocess"):
+                for i, image in enumerate(images):
+                    bucket, pre, pad = self._preprocess(image)
+                    prepped.append((pre, pad))
+                    groups.setdefault(bucket, []).append(i)
+            results = [None] * len(images)
+            for idxs in groups.values():
+                b = len(idxs)
 
-            def tile(t):
-                return t.expand(b, *t.shape[1:]).contiguous()
+                def tile(t):
+                    return t.expand(b, *t.shape[1:]).contiguous()
 
-            logits, boxes = self.model(
-                torch.stack([prepped[i][0] for i in idxs]),
-                torch.stack([prepped[i][1] for i in idxs]), tile(ids),
-                tile(attn), tile(pos))
-            scores, top_boxes, tok_probs = top_detections(logits, boxes,
-                                                          c.max_boxes)
-            scores = scores.float().cpu().numpy()
-            top_boxes = top_boxes.double().cpu().numpy()
-            tok_probs = tok_probs.float().cpu().numpy()
-            for j, i in enumerate(idxs):
-                results[i] = self._threshold(scores[j], top_boxes[j],
-                                             tok_probs[j], token_ids, cap,
-                                             thresh)
+                with span("detect.forward"):
+                    logits, boxes = self.model(
+                        torch.stack([prepped[i][0] for i in idxs]),
+                        torch.stack([prepped[i][1] for i in idxs]),
+                        tile(ids), tile(attn), tile(pos))
+                    scores, top_boxes, tok_probs = top_detections(
+                        logits, boxes, c.max_boxes)
+                    scores, top_boxes = scores.float(), top_boxes.double()
+                    tok_probs = tok_probs.float()
+                scores = to_host(scores)
+                top_boxes = to_host(top_boxes)
+                tok_probs = to_host(tok_probs)
+                for j, i in enumerate(idxs):
+                    results[i] = self._threshold(scores[j], top_boxes[j],
+                                                 tok_probs[j], token_ids,
+                                                 cap, thresh)
+            sp.count(boxes=sum(len(r["boxes"]) for r in results))
         return results
 
     def detect(self, image: torch.Tensor, caption: Optional[str] = None,
@@ -246,6 +258,7 @@ class GDinoDetector:
         'boxes' (N, 4), 'scores' (N,), 'token_logits' (N, T), 'labels'."""
         return self.detect_device(image, caption, box_threshold)[0]()
 
+    @span("detect.threshold")
     def _threshold(self, scores, boxes, tok_logits, token_ids, cap,
                    thresh: float) -> dict:
         keep = scores > thresh

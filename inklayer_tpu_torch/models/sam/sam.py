@@ -25,8 +25,10 @@ from inklayer_tpu_torch.config import SamConfig
 from inklayer_tpu_torch.models.sam.image_encoder import ImageEncoderViT
 from inklayer_tpu_torch.models.sam.mask_decoder import MaskDecoder
 from inklayer_tpu_torch.models.sam.prompt_encoder import PromptEncoder
+from inklayer_tpu_torch.ops.bits import to_host
 from inklayer_tpu_torch.ops.image import (resize_batch, resize_scale,
                                           scale_pad_normalize)
+from inklayer_tpu_torch.spans import span
 
 
 class Sam(nn.Module):
@@ -137,30 +139,33 @@ class SamPredictor:
         n = len(given[0])
         cap = self._capacity(n)
         boxes = points = masks = None
-        if boxes_xyxy is not None:
-            padded = np.zeros((cap, 4), np.float32)
-            padded[:n] = np.asarray(boxes_xyxy, np.float32) * np.tile(scale, 2)
-            boxes = torch.from_numpy(padded).to(dev)
-        if point_coords is not None:
-            coords = np.asarray(point_coords, np.float32) * scale
-            labels = np.asarray(point_labels, np.int64)
-            if boxes is None:
-                coords = np.concatenate(
-                    [coords, np.zeros((n, 1, 2), np.float32)], axis=1)
-                labels = np.concatenate(
-                    [labels, np.full((n, 1), -1, np.int64)], axis=1)
-            pc = np.zeros((cap,) + coords.shape[1:], np.float32)
-            pl = np.full((cap,) + labels.shape[1:], -1, np.int64)
-            pc[:n], pl[:n] = coords, labels
-            points = (torch.from_numpy(pc).to(dev),
-                      torch.from_numpy(pl).to(dev))
-        if mask_input is not None:
-            m = torch.as_tensor(mask_input, dtype=torch.float32)
-            masks = torch.zeros((cap,) + tuple(m.shape[1:]) + (1,),
-                                dtype=torch.float32, device=dev)
-            masks[:n, ..., 0] = m.to(dev)
-        logits, iou = self.model.decode(state["embedding"], boxes, points,
-                                        masks, multimask_output)
+        with span("segment.prompts"):
+            if boxes_xyxy is not None:
+                padded = np.zeros((cap, 4), np.float32)
+                padded[:n] = np.asarray(boxes_xyxy, np.float32) \
+                    * np.tile(scale, 2)
+                boxes = torch.from_numpy(padded).to(dev)
+            if point_coords is not None:
+                coords = np.asarray(point_coords, np.float32) * scale
+                labels = np.asarray(point_labels, np.int64)
+                if boxes is None:
+                    coords = np.concatenate(
+                        [coords, np.zeros((n, 1, 2), np.float32)], axis=1)
+                    labels = np.concatenate(
+                        [labels, np.full((n, 1), -1, np.int64)], axis=1)
+                pc = np.zeros((cap,) + coords.shape[1:], np.float32)
+                pl = np.full((cap,) + labels.shape[1:], -1, np.int64)
+                pc[:n], pl[:n] = coords, labels
+                points = (torch.from_numpy(pc).to(dev),
+                          torch.from_numpy(pl).to(dev))
+            if mask_input is not None:
+                m = torch.as_tensor(mask_input, dtype=torch.float32)
+                masks = torch.zeros((cap,) + tuple(m.shape[1:]) + (1,),
+                                    dtype=torch.float32, device=dev)
+                masks[:n, ..., 0] = m.to(dev)
+        with span("segment.decoder"):
+            logits, iou = self.model.decode(state["embedding"], boxes,
+                                            points, masks, multimask_output)
         return logits[:n], iou[:n]
 
     def _postprocess(self, low_res_logits: torch.Tensor) -> np.ndarray:
@@ -238,11 +243,14 @@ class SamPredictor:
     def compute_image_state(self, image: torch.Tensor) -> dict:
         """(H, W, 3) uint8 image on the model's device -> state dict with
         the (1, G, G, C) embedding and the resize bookkeeping."""
-        pre, meta = self._preprocess_meta(image)
-        if self.encode_fn is not None:
-            emb = self.encode_fn(pre)[None]
-        else:
-            emb = self.model.encode(pre[None])
+        with span("segment.encode", images=1):
+            with span("segment.preprocess"):
+                pre, meta = self._preprocess_meta(image)
+            with span("segment.vit"):
+                if self.encode_fn is not None:
+                    emb = self.encode_fn(pre)[None]
+                else:
+                    emb = self.model.encode(pre[None])
         return {"embedding": emb, **meta}
 
     @torch.inference_mode()
@@ -251,11 +259,14 @@ class SamPredictor:
         model's device; returns one state per image, as
         :meth:`compute_image_state` does for one."""
         pres, metas = [], []
-        for image in images:
-            pre, meta = self._preprocess_meta(image)
-            pres.append(pre)
-            metas.append(meta)
-        embs = self.model.encode(torch.stack(pres))
+        with span("segment.encode", images=len(images)):
+            with span("segment.preprocess"):
+                for image in images:
+                    pre, meta = self._preprocess_meta(image)
+                    pres.append(pre)
+                    metas.append(meta)
+            with span("segment.vit"):
+                embs = self.model.encode(torch.stack(pres))
         return [{"embedding": embs[i: i + 1], **metas[i]}
                 for i in range(len(images))]
 
@@ -265,10 +276,13 @@ class SamPredictor:
         on the device, (N,) host iou).  The prompts are padded to
         ``box_capacity``, doubled until they fit, so the decoder sees the
         shapes of the chained path."""
-        logits, iou = self._decode_host_prompts(state, boxes_xyxy)
-        full = self._postprocess_device_state(state, logits[:, 0])
-        return (full > self.cfg.mask_threshold,
-                iou[:, 0].float().cpu().numpy())
+        n = len(boxes_xyxy)
+        with span("segment.decode", boxes=n, slots=self._capacity(n)):
+            logits, iou = self._decode_host_prompts(state, boxes_xyxy)
+            with span("segment.resample"):
+                full = self._postprocess_device_state(state, logits[:, 0])
+                masks = full > self.cfg.mask_threshold
+            return masks, to_host(iou[:, 0].float())
 
     def _postprocess_device_state(self, state: dict, low_res_logits):
         """(n, 4G, 4G) logits -> (n, H, W) fp32 logits: upsample to the
@@ -282,7 +296,10 @@ class SamPredictor:
     def decode_lowres_state(self, state: dict, boxes_model: torch.Tensor):
         """(cap, 4) boxes in model space -> ((cap, 4G, 4G) low-res logits,
         (cap,) iou)."""
-        logits, iou = self.model.decode_boxes(state["embedding"], boxes_model)
+        with span("segment.decode", slots=int(boxes_model.shape[0])):
+            with span("segment.decoder"):
+                logits, iou = self.model.decode_boxes(state["embedding"],
+                                                      boxes_model)
         return logits[:, 0], iou[:, 0]
 
     @torch.inference_mode()
@@ -296,5 +313,6 @@ class SamPredictor:
         while b < n:
             b *= 2
         b = min(b, cap)
-        full = self._postprocess_device_state(state, lowres[:b])
-        return (full > self.cfg.mask_threshold)[:n]
+        with span("segment.decode"), span("segment.resample"):
+            full = self._postprocess_device_state(state, lowres[:b])
+            return (full > self.cfg.mask_threshold)[:n]

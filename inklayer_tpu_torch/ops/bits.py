@@ -5,13 +5,15 @@ stacks, and several results in one read-back (port of
 On the card every read-back is a ``non_blocking`` copy into pinned host
 memory, followed by a CUDA event recorded on the stream that produced the
 data (the calling thread's current stream).  The ``*_readback`` functions
-enqueue the copies and return a function that waits on that event only,
+enqueue the copies and return a function that waits on that event only
+(in a ``wait`` span, :mod:`inklayer_tpu_torch.spans`),
 never on the device as a whole, and then returns the host arrays: the run
 enqueues a stack's copy on its own thread, behind the work that made it,
 and a writer thread waits for it without blocking on whatever the run
 enqueues next.  On the CPU the same functions hand back the tensors'
 memory.  ``masks_to_host``, ``disjoint_masks_to_host`` and
-``batched_final_readback`` are the blocking forms the JAX package has.
+``batched_final_readback`` are the blocking forms the JAX package has;
+:func:`to_host` is the blocking read of one tensor.
 :func:`masks_to_device` is the upload: ``np.packbits`` rows, unpacked
 where they land.
 """
@@ -22,6 +24,8 @@ from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
+
+from inklayer_tpu_torch.spans import span
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits order, MSB first
 
@@ -42,10 +46,17 @@ def readback(tensors: Sequence[torch.Tensor]
     done.record(torch.cuda.current_stream(tensors[0].device))
 
     def wait() -> List[np.ndarray]:
-        done.synchronize()
+        with span("wait"):
+            done.synchronize()
         return [b.numpy() for b in host]
 
     return wait
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array: a blocking read, in a ``wait`` span."""
+    with span("wait"):
+        return t.cpu().numpy()
 
 
 def pack_bits(masks: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,6 @@ from __future__ import annotations
 import glob
 import os
 import shutil
-import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -23,6 +22,7 @@ from PIL import Image
 
 from inklayer_tpu_torch.pipeline.inpaint.masks import (
     create_rgba_layers_on_dir, get_mask)
+from inklayer_tpu_torch.spans import timed
 
 
 def mask_to_bbox(mask: np.ndarray) -> Optional[List[int]]:
@@ -116,75 +116,77 @@ class Inpainter:
         return self.inpaint_func(image, mask)
 
     def run_on_sketch_dir(self, sketch_dir: str) -> str:
-        t0 = time.perf_counter()
-        masks_dir = os.path.join(sketch_dir, "masks_final")
-        if not os.path.exists(masks_dir):
-            raise FileNotFoundError(
-                f"{masks_dir} missing — run segmentation first")
-        mask_paths = sorted(
-            glob.glob(os.path.join(masks_dir, "mask_*.png")),
-            key=lambda p: int(os.path.basename(p).split("_")[1].split(".")[0]))
-        masks = [np.asarray(Image.open(p).convert("L")) > 127
-                 for p in mask_paths]
-        sketch_rgb = np.asarray(
-            Image.open(os.path.join(sketch_dir, "input.png")).convert("RGB"))
+        self.stage_times = {}
+        with timed("inpaint.assemble", self.stage_times):
+            masks_dir = os.path.join(sketch_dir, "masks_final")
+            if not os.path.exists(masks_dir):
+                raise FileNotFoundError(
+                    f"{masks_dir} missing — run segmentation first")
+            mask_paths = sorted(
+                glob.glob(os.path.join(masks_dir, "mask_*.png")),
+                key=lambda p: int(
+                    os.path.basename(p).split("_")[1].split(".")[0]))
+            masks = [np.asarray(Image.open(p).convert("L")) > 127
+                     for p in mask_paths]
+            sketch_rgb = np.asarray(
+                Image.open(os.path.join(sketch_dir, "input.png"))
+                .convert("RGB"))
 
-        layers_dir = os.path.join(sketch_dir, "complete_layers")
-        debug_dir = os.path.join(sketch_dir, "complete_layers_process")
-        for d in (layers_dir, debug_dir):
-            if os.path.exists(d) and os.listdir(d):
-                shutil.rmtree(d)
-            os.makedirs(d, exist_ok=True)
+            layers_dir = os.path.join(sketch_dir, "complete_layers")
+            debug_dir = os.path.join(sketch_dir, "complete_layers_process")
+            for d in (layers_dir, debug_dir):
+                if os.path.exists(d) and os.listdir(d):
+                    shutil.rmtree(d)
+                os.makedirs(d, exist_ok=True)
 
-        # a layer's assembly reads only the masks and the sketch, never
-        # another layer's result: assemble all, then batch the diffusion
-        todo = []  # (i, layer, edit_mask, orig_mask)
-        for i in range(len(masks)):
-            edit_mask, layer, debug, need_inpaint, orig_mask = \
-                assemble_inpaint_input(masks, i, sketch_rgb)
-            cur_debug = os.path.join(debug_dir, f"mask_{i}")
-            os.makedirs(cur_debug, exist_ok=True)
-            Image.fromarray(layer).save(
-                os.path.join(cur_debug, "sketch_layer.png"))
-            Image.fromarray(layer).save(
-                os.path.join(layers_dir, f"layer_{i}.png"))
-            if debug is not None:
-                Image.fromarray(debug).save(
-                    os.path.join(cur_debug, "debug_vis.png"))
-            if need_inpaint:
-                Image.fromarray(edit_mask.astype(np.uint8) * 255).save(
-                    os.path.join(cur_debug, "edit_mask.png"))
-                todo.append((i, layer, edit_mask, orig_mask))
-        t1 = time.perf_counter()
-        self.stage_times = {"assemble": t1 - t0}
+            # a layer's assembly reads only the masks and the sketch, never
+            # another layer's result: assemble all, then batch the diffusion
+            todo = []  # (i, layer, edit_mask, orig_mask)
+            for i in range(len(masks)):
+                edit_mask, layer, debug, need_inpaint, orig_mask = \
+                    assemble_inpaint_input(masks, i, sketch_rgb)
+                cur_debug = os.path.join(debug_dir, f"mask_{i}")
+                os.makedirs(cur_debug, exist_ok=True)
+                Image.fromarray(layer).save(
+                    os.path.join(cur_debug, "sketch_layer.png"))
+                Image.fromarray(layer).save(
+                    os.path.join(layers_dir, f"layer_{i}.png"))
+                if debug is not None:
+                    Image.fromarray(debug).save(
+                        os.path.join(cur_debug, "debug_vis.png"))
+                if need_inpaint:
+                    Image.fromarray(edit_mask.astype(np.uint8) * 255).save(
+                        os.path.join(cur_debug, "edit_mask.png"))
+                    todo.append((i, layer, edit_mask, orig_mask))
 
         results = []
-        if todo:
-            pairs = [(Image.fromarray(layer),
-                      Image.fromarray(edit_mask.astype(np.uint8) * 255))
-                     for _, layer, edit_mask, _ in todo]
-            if self.inpaint_batch_func is not None and len(pairs) > 1:
-                results = self.inpaint_batch_func(pairs)
-            else:
-                results = [self.inpaint_func(im, mk) for im, mk in pairs]
-        t2 = time.perf_counter()
-        for (i, layer, _edit, orig_mask), inpainted in zip(todo, results):
-            cur_debug = os.path.join(debug_dir, f"mask_{i}")
-            inpainted.save(os.path.join(cur_debug, "inpainted_image.png"))
-            final = composite_original_onto_inpainted(inpainted, layer,
-                                                      orig_mask)
-            final.save(os.path.join(cur_debug, "final_composited.png"))
-            final.save(os.path.join(layers_dir, f"layer_{i}.png"))
-        t3 = time.perf_counter()
+        with timed("inpaint.inpaint", self.stage_times, layers=len(todo)):
+            if todo:
+                pairs = [(Image.fromarray(layer),
+                          Image.fromarray(edit_mask.astype(np.uint8) * 255))
+                         for _, layer, edit_mask, _ in todo]
+                if self.inpaint_batch_func is not None and len(pairs) > 1:
+                    results = self.inpaint_batch_func(pairs)
+                else:
+                    results = [self.inpaint_func(im, mk) for im, mk in pairs]
+        with timed("inpaint.composite", self.stage_times):
+            for (i, layer, _edit, orig_mask), inpainted in zip(todo,
+                                                               results):
+                cur_debug = os.path.join(debug_dir, f"mask_{i}")
+                inpainted.save(os.path.join(cur_debug, "inpainted_image.png"))
+                final = composite_original_onto_inpainted(inpainted, layer,
+                                                          orig_mask)
+                final.save(os.path.join(cur_debug, "final_composited.png"))
+                final.save(os.path.join(layers_dir, f"layer_{i}.png"))
 
         # complete_layers -> complete_layers_rgba (the basename only: a
         # parent directory whose name holds "layers" stays as it is)
-        rgba_dir = os.path.join(
-            os.path.dirname(layers_dir),
-            os.path.basename(layers_dir).replace("layers", "layers_rgba"))
-        create_rgba_layers_on_dir(layers_dir, rgba_dir)
-        self.stage_times.update(inpaint=t2 - t1, composite=t3 - t2,
-                                rgba=time.perf_counter() - t3)
+        with timed("inpaint.rgba", self.stage_times):
+            rgba_dir = os.path.join(
+                os.path.dirname(layers_dir),
+                os.path.basename(layers_dir).replace("layers",
+                                                     "layers_rgba"))
+            create_rgba_layers_on_dir(layers_dir, rgba_dir)
         return layers_dir
 
 

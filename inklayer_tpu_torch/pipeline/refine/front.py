@@ -33,6 +33,7 @@ from inklayer_tpu_torch.pipeline.refine.depth_sort import (
     major_overlap_matrix, mask_depth_scores, sample_stroke_points)
 from inklayer_tpu_torch.pipeline.refine.nms import (greedy_nms,
                                                     ink_mask_iou_matrix)
+from inklayer_tpu_torch.spans import span
 
 
 def device_prefilter_gates(boxes_cxcywh: torch.Tensor, scores: torch.Tensor,
@@ -160,7 +161,9 @@ def nms_depth_front(kept0: np.ndarray, gate: np.ndarray,
     scores (K,), major overlap (K, K))."""
     sel = torch.from_numpy(np.asarray(kept0, np.int64)).to(masks.device)
     iou_s, dscores, overlap = depth_front(masks[sel], gray, depth, cfg)
-    iou_s, dscores, overlap = (t.cpu() for t in (iou_s, dscores, overlap))
+    with span("wait"):
+        iou_s, dscores, overlap = (t.cpu() for t in (iou_s, dscores,
+                                                     overlap))
     bb = torch.from_numpy(np.where(gate, iou_bbox, 0.0).astype(np.float32))
     keep = greedy_nms(iou_s, torch.from_numpy(np.asarray(gate, bool)), bb,
                       torch.from_numpy(np.asarray(order, np.int64)),

@@ -56,7 +56,6 @@ import glob
 import json
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -79,6 +78,7 @@ from inklayer_tpu_torch.pipeline.refine.mask_cleaner import clean_masks_device
 from inklayer_tpu_torch.pipeline.refine.nms import nms_host_prefilter
 from inklayer_tpu_torch.pipeline.refine.refiner import (
     improve_masks_deferred, parse_masks_to_disjoint)
+from inklayer_tpu_torch.spans import span, timed
 
 STAGES = ("detect", "segment", "depth", "clean", "nms", "refine", "write")
 
@@ -103,6 +103,7 @@ def decode_image(path: str):
     return np.array(pil), np.array(pil.convert("L"))
 
 
+@span("upload")
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``; to the card through pinned memory and a
     non-blocking copy, so that the host does not wait for the stream."""
@@ -210,13 +211,14 @@ class InkLayerPipeline:
             self.sam.encode_fn = self._batched_encoder.encode
         return self._batched_encoder
 
-    def _stage(self, name: str, t0: float, sync: bool = True) -> float:
+    def _stage(self, name: str, sync: bool = True):
+        """``with self._stage(name):`` a ``run.<name>`` span timed into this
+        thread's :attr:`stage_times`; it ends with a synchronise of the
+        thread's current stream unless ``sync`` is False."""
+        end = None
         if sync and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        t1 = time.perf_counter()
-        times = self._local.stage_times
-        times[name] = times.get(name, 0.0) + (t1 - t0)
-        return t1
+            end = torch.cuda.current_stream(self.device).synchronize
+        return timed("run." + name, self._local.stage_times, sync=end)
 
     def _stream_after(self, main):
         """A new CUDA stream, ordered after ``main``'s work so far, as this
@@ -328,11 +330,10 @@ class InkLayerPipeline:
         for s in range(0, len(paths), batch_size):
             chunk = paths[s: s + batch_size]
             images = [upload(decode_image(p)[0], self.device) for p in chunk]
-            t0 = time.perf_counter()
-            dets = self.detector.detect_batch(images)
-            t0 = self._stage("detect", t0)
-            states = self.sam.precompute_image_states(images)
-            self._stage("segment", t0)
+            with self._stage("detect"):
+                dets = self.detector.detect_batch(images)
+            with self._stage("segment"):
+                states = self.sam.precompute_image_states(images)
             for p, d, st in zip(chunk, dets, states):
                 self._det_cache[p] = d
                 self._sam_state_cache[p] = st
@@ -347,68 +348,72 @@ class InkLayerPipeline:
         and read-backs are queued."""
         cfg, rcfg, dev = self.cfg, self.cfg.refine, self.device
         self._local.stage_times = {}
-        t0 = time.perf_counter()
-        input_name = os.path.basename(input_path).split(".")[0]
-        host = self._host_cache.pop(input_path, None)
-        image, gray = host if host is not None else decode_image(input_path)
-        image_pil = Image.fromarray(image)
-        h, w = image.shape[:2]
-        out_dir = io_out.prepare_out_dir(out_base_dir, input_name)
-        # host writes go to the writer threads even in a run on its own, so
-        # that PNG encodes overlap device work; drained before returning
-        was_async = self.async_io
-        self.async_io = True
-        self._submit(io_out.save_input_png, os.path.join(out_dir, "input.png"),
-                     input_path, image)
-        image_dev = self._img_cache.pop(input_path, None)
-        if image_dev is None:
-            image_dev = upload(image, dev)
-        gray_dev = upload(gray, dev)
-        t0 = self._stage("write", t0)
+        with self._stage("write"):
+            input_name = os.path.basename(input_path).split(".")[0]
+            host = self._host_cache.pop(input_path, None)
+            image, gray = host if host is not None \
+                else decode_image(input_path)
+            image_pil = Image.fromarray(image)
+            h, w = image.shape[:2]
+            out_dir = io_out.prepare_out_dir(out_base_dir, input_name)
+            # host writes go to the writer threads even in a run on its
+            # own, so that PNG encodes overlap device work; drained before
+            # returning
+            was_async = self.async_io
+            self.async_io = True
+            self._submit(io_out.save_input_png,
+                         os.path.join(out_dir, "input.png"), input_path,
+                         image)
+            image_dev = self._img_cache.pop(input_path, None)
+            if image_dev is None:
+                image_dev = upload(image, dev)
+            gray_dev = upload(gray, dev)
 
-        # the mmdetection alt route (refinement/bbox_filter.py:40-45): when
-        # <out_dir>/mmdet_out/*.json exists its boxes replace GDINO's before
-        # NMS, so the detect -> decode chain and the survivor-subset masks
-        # are off.  Globbed after prepare_out_dir, which empties a non-empty
-        # out_dir, as the JAX runner does: only a file written after that
-        # is read.
-        mmdet_json = glob.glob(os.path.join(out_dir, "mmdet_out", "*.json"))
+        with self._stage("detect"):
+            # the mmdetection alt route (refinement/bbox_filter.py:40-45):
+            # when <out_dir>/mmdet_out/*.json exists its boxes replace
+            # GDINO's before NMS, so the detect -> decode chain and the
+            # survivor-subset masks are off.  Globbed after
+            # prepare_out_dir, which empties a non-empty out_dir, as the
+            # JAX runner does: only a file written after that is read.
+            mmdet_json = glob.glob(os.path.join(out_dir, "mmdet_out",
+                                                "*.json"))
 
-        # detect; the top-K boxes stay on the device and chain into the SAM
-        # decode (the surviving detections are a score-sorted prefix).  The
-        # sweep may have run it: the lookahead leaves the device triple (or
-        # the parts, with the device front), the batched prefill a host
-        # dict (then there are no device boxes).  With the device front the
-        # read-back waits to join the front's (JAX runner.py:450-470).
-        det = self._det_cache.pop(input_path, None)
-        boxes_dev = scores_dev = det_parts = det_finalize = None
-        if det is None and cfg.device_front:
-            det = self.detector.detect_device_parts(image_dev)
-        elif det is None:
-            det = self.detector.detect_device(image_dev)
-        if isinstance(det, tuple) and len(det) == 4:
-            det_parts, det_finalize, scores_dev, boxes_dev = det
-        elif isinstance(det, tuple):
-            det, scores_dev, boxes_dev = det
-        t0 = self._stage("detect", t0)
-        state = self._sam_state_cache.pop(input_path, None)
-        if state is None:
-            state = self.sam.compute_image_state(image_dev)
-        elif dev.type == "cuda":  # encoded on another stream, maybe
-            with torch.inference_mode():
-                state["embedding"].record_stream(
-                    torch.cuda.current_stream(dev))
-        lowres = None
-        if boxes_dev is not None and not mmdet_json:
-            lowres, _iou = self.sam.decode_lowres_state(
-                state, boxes_cxcywh_to_sam_space(boxes_dev, (h, w),
-                                                 state["scale"]))
-        t0 = self._stage("segment", t0)
-        depth = self._depth_cache.pop(input_path, None)
-        if depth is None:
-            depth = self.depth.infer_image_device(image_dev)
-        depth_u8 = quantize_depth(depth)
-        t0 = self._stage("depth", t0)
+            # detect; the top-K boxes stay on the device and chain into the
+            # SAM decode (the surviving detections are a score-sorted
+            # prefix).  The sweep may have run it: the lookahead leaves the
+            # device triple (or the parts, with the device front), the
+            # batched prefill a host dict (then there are no device boxes).
+            # With the device front the read-back waits to join the
+            # front's (JAX runner.py:450-470).
+            det = self._det_cache.pop(input_path, None)
+            boxes_dev = scores_dev = det_parts = det_finalize = None
+            if det is None and cfg.device_front:
+                det = self.detector.detect_device_parts(image_dev)
+            elif det is None:
+                det = self.detector.detect_device(image_dev)
+            if isinstance(det, tuple) and len(det) == 4:
+                det_parts, det_finalize, scores_dev, boxes_dev = det
+            elif isinstance(det, tuple):
+                det, scores_dev, boxes_dev = det
+        with self._stage("segment"):
+            state = self._sam_state_cache.pop(input_path, None)
+            if state is None:
+                state = self.sam.compute_image_state(image_dev)
+            elif dev.type == "cuda":  # encoded on another stream, maybe
+                with torch.inference_mode():
+                    state["embedding"].record_stream(
+                        torch.cuda.current_stream(dev))
+            lowres = None
+            if boxes_dev is not None and not mmdet_json:
+                lowres, _iou = self.sam.decode_lowres_state(
+                    state, boxes_cxcywh_to_sam_space(boxes_dev, (h, w),
+                                                     state["scale"]))
+        with self._stage("depth"):
+            depth = self._depth_cache.pop(input_path, None)
+            if depth is None:
+                depth = self.depth.infer_image_device(image_dev)
+            depth_u8 = quantize_depth(depth)
 
         # the device front (JAX runner.py:510-530): masks over the whole
         # top-K capacity, cleaned, then the prefilter, gates, NMS scan and
@@ -416,184 +421,197 @@ class InkLayerPipeline:
         # detection is read back; rows stay in top-K index space
         front = front_host = cleaned = None
         if lowres is not None and cfg.device_front:
-            masks_dev = self.sam.masks_from_lowres(state, lowres,
-                                                   int(lowres.shape[0]))
-            t0 = self._stage("segment", t0)
-            cleaned, _capped = clean_masks_device(masks_dev, rcfg)
-            t0 = self._stage("clean", t0)
-            front = nms_depth_front_device(
-                boxes_dev, scores_dev, cleaned, gray_dev, depth, (h, w),
-                rcfg, box_threshold=self.detector.cfg.box_threshold)
-            t0 = self._stage("nms", t0)
-        if det_parts is not None:
-            # one read-back for the detection and the front together
-            # (JAX runner.py:534-545)
-            self._count_sync()
-            host = readback(list(det_parts) + list(front or ()))()
-            det, front_host = det_finalize(host[:4]), host[4:]
-        elif callable(det):
-            self._count_sync()
-            det = det()
-        t0 = self._stage("detect", t0)
+            with self._stage("segment"):
+                masks_dev = self.sam.masks_from_lowres(
+                    state, lowres, int(lowres.shape[0]))
+            with self._stage("clean"):
+                cleaned, _capped = clean_masks_device(masks_dev, rcfg)
+            with self._stage("nms"):
+                front = nms_depth_front_device(
+                    boxes_dev, scores_dev, cleaned, gray_dev, depth, (h, w),
+                    rcfg, box_threshold=self.detector.cfg.box_threshold)
+        with self._stage("detect"):
+            if det_parts is not None:
+                # one read-back for the detection and the front together
+                # (JAX runner.py:534-545)
+                self._count_sync()
+                host = readback(list(det_parts) + list(front or ()))()
+                det, front_host = det_finalize(host[:4]), host[4:]
+            elif callable(det):
+                self._count_sync()
+                det = det()
 
-        boxes_cxcywh, scores = det["boxes"], det["scores"]
-        # cxcywh -> xyxy normalised -> absolute int (utils/processing.py)
-        xyxy_norm = np.stack([
-            boxes_cxcywh[:, 0] - boxes_cxcywh[:, 2] / 2,
-            boxes_cxcywh[:, 1] - boxes_cxcywh[:, 3] / 2,
-            boxes_cxcywh[:, 0] + boxes_cxcywh[:, 2] / 2,
-            boxes_cxcywh[:, 1] + boxes_cxcywh[:, 3] / 2,
-        ], axis=-1) if len(boxes_cxcywh) else np.zeros((0, 4))
-        boxes_abs = (xyxy_norm * np.asarray([w, h, w, h])).astype(int) \
-            .astype(float)
+        with self._stage("segment"):
+            boxes_cxcywh, scores = det["boxes"], det["scores"]
+            # cxcywh -> xyxy normalised -> absolute int
+            # (utils/processing.py)
+            xyxy_norm = np.stack([
+                boxes_cxcywh[:, 0] - boxes_cxcywh[:, 2] / 2,
+                boxes_cxcywh[:, 1] - boxes_cxcywh[:, 3] / 2,
+                boxes_cxcywh[:, 0] + boxes_cxcywh[:, 2] / 2,
+                boxes_cxcywh[:, 1] + boxes_cxcywh[:, 3] / 2,
+            ], axis=-1) if len(boxes_cxcywh) else np.zeros((0, 4))
+            boxes_abs = (xyxy_norm * np.asarray([w, h, w, h])).astype(int) \
+                .astype(float)
 
-        def write_bbox_outputs():
-            io_out.save_norm_bboxes(boxes_abs, scores, image_pil.size,
-                                    os.path.join(out_dir, "bboxes.json"))
-            io_out.save_png(os.path.join(out_dir, "bboxes.png"), np.asarray(
-                io_out.draw_boxes_image(image_pil, xyxy_norm.tolist(), scores,
-                                        labels=det.get("labels"))))
+            def write_bbox_outputs():
+                io_out.save_norm_bboxes(boxes_abs, scores, image_pil.size,
+                                        os.path.join(out_dir, "bboxes.json"))
+                io_out.save_png(
+                    os.path.join(out_dir, "bboxes.png"), np.asarray(
+                        io_out.draw_boxes_image(image_pil, xyxy_norm.tolist(),
+                                                scores,
+                                                labels=det.get("labels"))))
 
-        if not no_intermediate:
-            self._submit(write_bbox_outputs)
+            if not no_intermediate:
+                self._submit(write_bbox_outputs)
 
-        # --no_intermediate with the chained decode: masks/ and
-        # masks_cleaned/ are never written and NMS and refine read only the
-        # prefilter survivors, so their masks are made after the prefilter;
-        # not with the device front, whose masks are made (JAX
-        # runner.py:589-593)
-        n_det = len(boxes_abs)
-        subset = (no_intermediate and lowres is not None and n_det > 0
-                  and front is None)
-        if front is not None:
-            pass  # the top-K capacity's masks, made above
-        elif lowres is not None and n_det and not subset:
-            masks_dev = self.sam.masks_from_lowres(state, lowres, n_det)
-        elif lowres is None and n_det:  # host boxes (batched prefill, mmdet)
-            masks_dev, _iou = self.sam.predict_device_state(state, boxes_abs)
-        else:
-            masks_dev = torch.zeros((0, h, w), dtype=torch.bool, device=dev)
-        t0 = self._stage("segment", t0)
+            # --no_intermediate with the chained decode: masks/ and
+            # masks_cleaned/ are never written and NMS and refine read only
+            # the prefilter survivors, so their masks are made after the
+            # prefilter; not with the device front, whose masks are made
+            # (JAX runner.py:589-593)
+            n_det = len(boxes_abs)
+            subset = (no_intermediate and lowres is not None and n_det > 0
+                      and front is None)
+            if front is not None:
+                pass  # the top-K capacity's masks, made above
+            elif lowres is not None and n_det and not subset:
+                masks_dev = self.sam.masks_from_lowres(state, lowres, n_det)
+            elif lowres is None and n_det:  # host boxes (prefill, mmdet)
+                masks_dev, _iou = self.sam.predict_device_state(state,
+                                                                boxes_abs)
+            else:
+                masks_dev = torch.zeros((0, h, w), dtype=torch.bool,
+                                        device=dev)
 
-        def write_sam_outputs(wait):
-            self._count_sync()
-            packed, labels = wait()
-            masks = unpack_bits_host(packed, w)
-            io_out.save_masks_dir(masks, os.path.join(out_dir, "masks"))
-            io_out.save_png(os.path.join(out_dir, "segmented_sketch.png"),
-                            color_sketch_by_label_map(image, labels,
-                                                      len(masks)))
+        with self._stage("clean"):
+            def write_sam_outputs(wait):
+                self._count_sync()
+                packed, labels = wait()
+                masks = unpack_bits_host(packed, w)
+                io_out.save_masks_dir(masks, os.path.join(out_dir, "masks"))
+                io_out.save_png(os.path.join(out_dir, "segmented_sketch.png"),
+                                color_sketch_by_label_map(image, labels,
+                                                          len(masks)))
 
-        if not no_intermediate:
-            # the capacity's stack is cut to the detections (a prefix)
-            shown = masks_dev[:n_det]
-            self._submit(write_sam_outputs, readback(
-                [pack_bits(shown), mask_label_map(shown)]))
+            if not no_intermediate:
+                # the capacity's stack is cut to the detections (a prefix)
+                shown = masks_dev[:n_det]
+                self._submit(write_sam_outputs, readback(
+                    [pack_bits(shown), mask_label_map(shown)]))
 
-        if cleaned is None and not subset:
-            cleaned, _capped = clean_masks_device(masks_dev, rcfg)
-        t0 = self._stage("clean", t0)
+            if cleaned is None and not subset:
+                cleaned, _capped = clean_masks_device(masks_dev, rcfg)
 
-        def write_cleaned(wait):
-            self._count_sync()
-            io_out.save_masks_dir(wait(),
-                                  os.path.join(out_dir, "masks_cleaned"))
+        with self._stage("nms"):
+            def write_cleaned(wait):
+                self._count_sync()
+                io_out.save_masks_dir(wait(),
+                                      os.path.join(out_dir, "masks_cleaned"))
 
-        if not no_intermediate:
-            self._submit(write_cleaned, masks_readback(cleaned[:n_det]))
+            if not no_intermediate:
+                self._submit(write_cleaned, masks_readback(cleaned[:n_det]))
 
-        if mmdet_json:  # the alt route's boxes; the masks stay GDINO's
-            with open(mmdet_json[0]) as f:
-                alt = json.load(f)
-            alt_norm = np.asarray(alt["bboxes"], float)
-            boxes_abs = alt_norm * np.asarray([w, h, w, h]) \
-                if alt_norm.size and alt_norm.max() <= 1.0 else alt_norm
-            scores = np.asarray(alt["scores"], float)
-            xyxy_norm = boxes_abs / np.asarray([w, h, w, h]) \
-                if boxes_abs.size else boxes_abs
+            if mmdet_json:  # the alt route's boxes; the masks stay GDINO's
+                with open(mmdet_json[0]) as f:
+                    alt = json.load(f)
+                alt_norm = np.asarray(alt["bboxes"], float)
+                boxes_abs = alt_norm * np.asarray([w, h, w, h]) \
+                    if alt_norm.size and alt_norm.max() <= 1.0 else alt_norm
+                scores = np.asarray(alt["scores"], float)
+                xyxy_norm = boxes_abs / np.asarray([w, h, w, h]) \
+                    if boxes_abs.size else boxes_abs
 
-        if front_host is not None:
-            # the device front's rows are in top-K index space, which is
-            # the detections' (JAX runner.py:662-670).  The JAX package
-            # then cuts the cleaning's cap flags to the detections
-            # (:823-827); the port's connected components have no cap.
-            valid, order, keep, dscores, doverlap = front_host
-            kept = rows_of_kept = order[keep & valid[order]].astype(np.int64)
-        else:
-            # host prefilter + gates, then the NMS + depth-stat front
-            kept0, order0, gate, iou_bbox = nms_host_prefilter(
-                boxes_abs, scores, gray, rcfg)
-            k = len(kept0)
-            t0 = self._stage("nms", t0)
+            if front_host is not None:
+                # the device front's rows are in top-K index space, which
+                # is the detections' (JAX runner.py:662-670).  The JAX
+                # package then cuts the cleaning's cap flags to the
+                # detections (:823-827); the port's connected components
+                # have no cap.
+                valid, order, keep, dscores, doverlap = front_host
+                kept = rows_of_kept = order[keep & valid[order]].astype(
+                    np.int64)
+            else:
+                # host prefilter + gates, then the NMS + depth-stat front
+                kept0, order0, gate, iou_bbox = nms_host_prefilter(
+                    boxes_abs, scores, gray, rcfg)
+                k = len(kept0)
+        if front_host is None:
             front_rows = kept0
             if subset and k:
                 # masks and cleaning for the survivors only, padded to a
                 # pow2 bucket; the cleaned rows are then in kept0-position
                 # space
-                bucket = 1
-                while bucket < k:
-                    bucket *= 2
-                bucket = min(bucket, int(lowres.shape[0]))
-                sel = np.zeros((bucket,), np.int64)
-                sel[:k] = kept0
-                masks_dev = self.sam.masks_from_lowres(
-                    state, lowres[upload(sel, dev)], bucket)
-                t0 = self._stage("segment", t0)
-                cleaned, _capped = clean_masks_device(masks_dev, rcfg)
-                t0 = self._stage("clean", t0)
+                with self._stage("segment"):
+                    bucket = 1
+                    while bucket < k:
+                        bucket *= 2
+                    bucket = min(bucket, int(lowres.shape[0]))
+                    sel = np.zeros((bucket,), np.int64)
+                    sel[:k] = kept0
+                    masks_dev = self.sam.masks_from_lowres(
+                        state, lowres[upload(sel, dev)], bucket)
+                with self._stage("clean"):
+                    cleaned, _capped = clean_masks_device(masks_dev, rcfg)
                 front_rows = np.arange(k)
-            if k:
-                self._count_sync()
-                keep, dscores, doverlap = nms_depth_front(
-                    front_rows, gate, iou_bbox, order0, cleaned, gray_dev,
-                    depth, rcfg)
-                kept = kept0[order0[keep]]
-                pos = {int(o): i for i, o in enumerate(kept0)}
-                rows_of_kept = np.asarray([pos[int(i)] for i in kept],
-                                          np.int64)
+            with self._stage("nms"):
+                if k:
+                    self._count_sync()
+                    keep, dscores, doverlap = nms_depth_front(
+                        front_rows, gate, iou_bbox, order0, cleaned,
+                        gray_dev, depth, rcfg)
+                    kept = kept0[order0[keep]]
+                    pos = {int(o): i for i, o in enumerate(kept0)}
+                    rows_of_kept = np.asarray([pos[int(i)] for i in kept],
+                                              np.int64)
+                else:
+                    kept = rows_of_kept = np.zeros((0,), np.int64)
+
+        with self._stage("refine"):
+            final_norm = [xyxy_norm[i].tolist() for i in kept]
+            final_data = {"bboxes": final_norm,
+                          "scores": [float(scores[i]) for i in kept],
+                          "kept_indices": [int(i) for i in kept],
+                          "threshold": rcfg.nms_iou}
+
+            def write_final_bbox_outputs():
+                with open(os.path.join(out_dir, "bboxes_final.json"),
+                          "w") as f:
+                    json.dump(final_data, f, indent=4)
+                io_out.save_png(
+                    os.path.join(out_dir, "bboxes_final.png"),
+                    np.asarray(io_out.draw_boxes_image(
+                        image_pil, final_norm, final_data["scores"])))
+
+            self._submit(write_final_bbox_outputs)
+
+            # refinement: depth sort from the front's stats, disjoint
+            # layers, watershed + box completion, the candidate extra mask
+            sort_result = None
+            if len(kept):
+                rows = rows_of_kept if subset else kept
+                kept_masks = cleaned[upload(rows, dev)]
+                kept_boxes = np.asarray(
+                    [[int(xyxy_norm[i][0] * w), int(xyxy_norm[i][1] * h),
+                      int(xyxy_norm[i][2] * w), int(xyxy_norm[i][3] * h)]
+                     for i in kept], float)
+                cont = containment_graph(kept_boxes, (h, w), rcfg)
+                sort_result = sort_order(
+                    dscores[rows_of_kept], cont,
+                    doverlap[np.ix_(rows_of_kept, rows_of_kept)])
             else:
-                kept = rows_of_kept = np.zeros((0,), np.int64)
-        t0 = self._stage("nms", t0)
-        final_norm = [xyxy_norm[i].tolist() for i in kept]
-        final_data = {"bboxes": final_norm,
-                      "scores": [float(scores[i]) for i in kept],
-                      "kept_indices": [int(i) for i in kept],
-                      "threshold": rcfg.nms_iou}
-
-        def write_final_bbox_outputs():
-            with open(os.path.join(out_dir, "bboxes_final.json"), "w") as f:
-                json.dump(final_data, f, indent=4)
-            io_out.save_png(
-                os.path.join(out_dir, "bboxes_final.png"),
-                np.asarray(io_out.draw_boxes_image(image_pil, final_norm,
-                                                   final_data["scores"])))
-
-        self._submit(write_final_bbox_outputs)
-
-        # refinement: depth sort from the front's stats, disjoint layers,
-        # watershed + box completion, the candidate extra mask
-        sort_result = None
-        if len(kept):
-            rows = rows_of_kept if subset else kept
-            kept_masks = cleaned[upload(rows, dev)]
-            kept_boxes = np.asarray(
-                [[int(xyxy_norm[i][0] * w), int(xyxy_norm[i][1] * h),
-                  int(xyxy_norm[i][2] * w), int(xyxy_norm[i][3] * h)]
-                 for i in kept], float)
-            cont = containment_graph(kept_boxes, (h, w), rcfg)
-            sort_result = sort_order(
-                dscores[rows_of_kept], cont,
-                doverlap[np.ix_(rows_of_kept, rows_of_kept)])
-        else:
-            kept_masks = torch.zeros((0, h, w), dtype=torch.bool, device=dev)
-            kept_boxes = np.zeros((0, 4))
-        disjoint, sorted_boxes, _info = parse_masks_to_disjoint(
-            kept_masks, kept_boxes, gray_dev, rcfg, sort_result=sort_result)
-        final, has_extra = improve_masks_deferred(
-            disjoint,
-            np.asarray(sorted_boxes) if len(sorted_boxes) else np.zeros((0, 4)),
-            gray_dev, rcfg)
-        t0 = self._stage("refine", t0)
+                kept_masks = torch.zeros((0, h, w), dtype=torch.bool,
+                                         device=dev)
+                kept_boxes = np.zeros((0, 4))
+            disjoint, sorted_boxes, _info = parse_masks_to_disjoint(
+                kept_masks, kept_boxes, gray_dev, rcfg,
+                sort_result=sort_result)
+            final, has_extra = improve_masks_deferred(
+                disjoint,
+                np.asarray(sorted_boxes) if len(sorted_boxes)
+                else np.zeros((0, 4)),
+                gray_dev, rcfg)
 
         # both stacks are disjoint: uint8 label maps, read back with the
         # depth map and the extra-mask flag in one read-back
@@ -629,22 +647,20 @@ class InkLayerPipeline:
             # all of this image's device work and read-backs are queued:
             # the next image's front goes behind them
             _prefetch_hook()
-        t0 = time.perf_counter()
         if inpaint:  # reads masks_final/ and input.png from disk
-            self.drain()
-            t0 = self._stage("write", t0, sync=False)
-            if self.inpainter is None:
+            with self._stage("write", sync=False):
+                self.drain()
+            if self.inpainter is not None:
+                with self._stage("inpaint", sync=False), self.inpaint_lock:
+                    self.inpainter.run_on_sketch_dir(out_dir)
+        with self._stage("write", sync=False):
+            if inpaint and self.inpainter is None:
                 print("Inpainting requested but no inpainter is configured; "
                       "skipping (provide diffusion weights to enable).")
-            else:
-                with self.inpaint_lock:
-                    self.inpainter.run_on_sketch_dir(out_dir)
-                t0 = self._stage("inpaint", t0, sync=False)
-        if no_intermediate:
-            self.drain()  # every write to this directory lands first
-            io_out.cleanup_intermediate(out_dir)
-        self.async_io = was_async
-        if not was_async:
-            self.drain()  # a run on its own: all outputs on disk on return
-        self._stage("write", t0, sync=False)
+            if no_intermediate:
+                self.drain()  # every write to this directory lands first
+                io_out.cleanup_intermediate(out_dir)
+            self.async_io = was_async
+            if not was_async:
+                self.drain()  # a run on its own: all outputs on disk
         return out_dir
