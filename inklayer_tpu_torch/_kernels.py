@@ -29,11 +29,15 @@ where it launches its kernel and nowhere else (under a lock: concurrent
 requests launch from several threads), so a run can show which kernels
 its main path went through.  A kernel built in several instances
 (the flash attention at head_dim 40, 64 and 80) also counts each instance
-under ``"<kernel>/<instance>"``.
+under ``"<kernel>/<instance>"``.  A CUDA graph capture runs nothing: inside
+:func:`captured_launches` the capturing thread's launches are counted into
+the dict it yields instead, and each replay of the graph adds that dict
+back (:func:`add_launches`), so the counters keep saying what ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -62,6 +66,7 @@ LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 _lib = None
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_capturing = threading.local()  # .into: captured_launches' dict, per thread
 build_seconds = None  # wall time of the build this process ran (None: reused)
 build_log = {}  # source name -> nvcc's stderr (ptxas -v), from a verbose build
 
@@ -147,11 +152,41 @@ def launch_counts() -> dict:
 
 
 def count_launch(name: str, instance: str = "") -> None:
+    into = getattr(_capturing, "into", None)
+    if into is not None:  # this thread is capturing a graph: nothing ran
+        into[name] = into.get(name, 0) + 1
+        if instance:
+            key = f"{name}/{instance}"
+            into[key] = into.get(key, 0) + 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
         if instance:
             key = f"{name}/{instance}"
             LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """``with captured_launches() as counts:`` this thread's launches while
+    open go into ``counts`` ({counter: launches}), not into
+    :data:`LAUNCHES`: for a CUDA graph capture, which launches nothing
+    until the graph is replayed.  Other threads count as usual."""
+    outer = getattr(_capturing, "into", None)
+    counts = _capturing.into = {}
+    try:
+        yield counts
+    finally:
+        _capturing.into = outer
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` ({counter: launches}, instance keys included) to
+    :data:`LAUNCHES`: one replay of a graph captured with
+    :func:`captured_launches`."""
+    with _count_lock:
+        for key, n in counts.items():
+            LAUNCHES[key] = LAUNCHES.get(key, 0) + n
 
 
 def _sources(csrc_dir: str = CSRC_DIR):

@@ -8,12 +8,21 @@ per output sample and zeroed where the sample falls outside the input.
 ``F.interpolate`` does none of that (its bicubic is a = -0.75 with another
 antialias), so the port builds the same per-axis weight matrices in numpy
 with jax's arithmetic (float32) and applies them as matmuls.
+
+The device copies of those matrices (and of other host constants, such as
+the depth model's normalisation) come from :func:`on_device`, a bounded
+cache per (host key, device, dtype): a pageable upload synchronises the
+stream and cannot be captured in a CUDA graph, so a resize pays it once
+per matrix, not once per call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Sequence, Tuple
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,34 +100,97 @@ def resize_matrix(n_in: int, n_out: int, antialias: bool = True,
                          antialias=antialias, kernel=_KERNELS[method])
 
 
+DEVICE_ENTRIES = 64  # device copies :func:`on_device` keeps (LRU)
+
+_device: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_device_lock = threading.Lock()
+_scope = threading.local()
+
+
+def on_device(make: Callable[..., np.ndarray], args: tuple,
+              device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``make(*args)``, a float32 host array, as a tensor on ``device`` in
+    ``dtype``; each (make, args, device, dtype) is uploaded once and kept
+    while among the last :data:`DEVICE_ENTRIES` used.  The tensor is shared
+    by every caller: read it, never write it.  Inside :func:`holding`, the
+    held tensors are looked up first and every tensor returned is held."""
+    key = (make, args, device, dtype)
+    held = getattr(_scope, "held", None)
+    if held is not None and key in held:
+        return held[key]
+    with _device_lock:
+        t = _device.get(key)
+        if t is None:
+            # a plain tensor even under inference mode: training saves
+            # these matrices for its backward pass
+            with torch.inference_mode(False):
+                t = torch.from_numpy(np.asarray(make(*args))).to(device, dtype)
+            _device[key] = t
+            if len(_device) > DEVICE_ENTRIES:
+                _device.popitem(last=False)
+        else:
+            _device.move_to_end(key)
+    if held is not None:
+        held[key] = t
+    return t
+
+
+@contextlib.contextmanager
+def holding(held: Dict[tuple, torch.Tensor]):
+    """While open, :func:`on_device` on this thread answers from ``held``
+    first and adds to it what it returns: a CUDA graph captured inside
+    keeps every constant it reads (the cache may drop them), and a capture
+    that follows an eager call holding the same dict uploads nothing."""
+    outer = getattr(_scope, "held", None)
+    _scope.held = held
+    try:
+        yield held
+    finally:
+        _scope.held = outer
+
+
+def _vector(*values: float) -> np.ndarray:
+    return np.asarray(values, dtype=np.float32)
+
+
+def device_vector(values: Sequence[float], device: torch.device
+                  ) -> torch.Tensor:
+    """``values`` as a float32 vector on ``device`` (:func:`on_device`)."""
+    return on_device(_vector, tuple(values), device, torch.float32)
+
+
 def resize(image: torch.Tensor, out_hw: Tuple[int, int],
            method: str = "bilinear", antialias: bool = True) -> torch.Tensor:
     """(H, W, ...) float -> (out_h, out_w, ...): ``jax.image.resize`` over
     the two leading axes, trailing axes kept."""
     h, w = image.shape[:2]
     dev, dt = image.device, image.dtype
-    wh = torch.from_numpy(resize_matrix(h, out_hw[0], antialias, method))
-    ww = torch.from_numpy(resize_matrix(w, out_hw[1], antialias, method))
+    wh = on_device(resize_matrix, (h, out_hw[0], antialias, method), dev, dt)
+    ww = on_device(resize_matrix, (w, out_hw[1], antialias, method), dev, dt)
     x = image.reshape(h, w, -1)
-    x = torch.einsum("oh,hwc->owc", wh.to(dev, dt), x)
-    x = torch.einsum("pw,owc->opc", ww.to(dev, dt), x)
+    x = torch.einsum("oh,hwc->owc", wh, x)
+    x = torch.einsum("pw,owc->opc", ww, x)
     return x.reshape(out_hw[0], out_hw[1], *image.shape[2:])
+
+
+def align_corners_args(n_in: int, n_out: int) -> tuple:
+    """:func:`weight_matrix`'s arguments for an align_corners=True resize
+    of one axis: s = (out-1)/(in-1), translation 0.5 - 0.5 s, no
+    antialias."""
+    s = (n_out - 1) / max(n_in - 1, 1) if n_out > 1 else 1.0
+    return (n_in, n_out, np.float32(s), np.float32(0.5 - 0.5 * s), False)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]
                          ) -> torch.Tensor:
     """Bilinear resize of the two LAST axes (..., H, W) with torch
-    ``align_corners=True`` semantics, as the JAX package expresses it:
-    scale_and_translate with s = (out-1)/(in-1), translation 0.5 - 0.5 s,
-    no antialias."""
+    ``align_corners=True`` semantics, as the JAX package expresses it
+    (:func:`align_corners_args`)."""
     in_h, in_w = x.shape[-2:]
-    mats = []
-    for n_in, n_out in ((in_h, out_hw[0]), (in_w, out_hw[1])):
-        s = (n_out - 1) / max(n_in - 1, 1) if n_out > 1 else 1.0
-        mats.append(torch.from_numpy(weight_matrix(
-            n_in, n_out, np.float32(s), np.float32(0.5 - 0.5 * s),
-            antialias=False)).to(x.device, x.dtype))
-    return torch.matmul(torch.matmul(mats[0], x), mats[1].T)
+    mh, mw = (on_device(weight_matrix, align_corners_args(n_in, n_out),
+                        x.device, x.dtype)
+              for n_in, n_out in ((in_h, out_hw[0]), (in_w, out_hw[1])))
+    return torch.matmul(torch.matmul(mh, x), mw.T)
 
 
 def resize_batch(x: torch.Tensor, out_hw: Tuple[int, int],

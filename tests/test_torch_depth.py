@@ -132,3 +132,231 @@ def test_depth_bucket_matches_jax(hw):
 
     assert depth_bucket(*hw, DepthConfig()) == jax_bucket(*hw,
                                                           JaxDepthConfig())
+
+
+# ---------------------------------------------------------------------------
+# device constants, the eager path's choice, capture-time launch counting
+# ---------------------------------------------------------------------------
+
+
+def _old_align_corners_matrix(n_in, n_out):
+    """The matrix resize_align_corners built per call before the cache."""
+    s = (n_out - 1) / max(n_in - 1, 1) if n_out > 1 else 1.0
+    return T.weight_matrix(n_in, n_out, np.float32(s),
+                           np.float32(0.5 - 0.5 * s), antialias=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_in,n_out", [(750, 518), (37, 57), (5, 5),
+                                        (518, 750), (1, 9)])
+def test_device_constants_equal_the_host_matrices(n_in, n_out, dtype):
+    cpu = torch.device("cpu")
+    got = T.on_device(T.resize_matrix, (n_in, n_out, True, "bicubic"), cpu,
+                      dtype)
+    want = torch.from_numpy(T.resize_matrix(n_in, n_out, True, "bicubic"))
+    assert got.dtype == dtype and torch.equal(got, want.to(dtype))
+    got = T.on_device(T.weight_matrix, T.align_corners_args(n_in, n_out),
+                      cpu, dtype)
+    want = torch.from_numpy(_old_align_corners_matrix(n_in, n_out))
+    assert got.dtype == dtype and torch.equal(got, want.to(dtype))
+
+
+def test_depth_normalisation_constants_equal_the_old_uploads():
+    from inklayer_tpu_torch.models.depth.dpt import DEPTH_MEAN, DEPTH_STD
+
+    for values in (DEPTH_MEAN, DEPTH_STD):
+        got = T.device_vector(values, torch.device("cpu"))
+        assert got.dtype == torch.float32
+        assert torch.equal(got, torch.tensor(values))
+
+
+@pytest.mark.parametrize("shape,out", [((75, 60, 3), (56, 70)),
+                                       ((37, 37, 8), (40, 50))])
+def test_cached_resizes_equal_the_per_call_uploads(rng, shape, out):
+    x = torch.from_numpy(rng.random(shape).astype(np.float32))
+    h, w = shape[:2]
+    wh = torch.from_numpy(T.resize_matrix(h, out[0], True, "bicubic"))
+    ww = torch.from_numpy(T.resize_matrix(w, out[1], True, "bicubic"))
+    y = torch.einsum("oh,hwc->owc", wh, x.reshape(h, w, -1))
+    want = torch.einsum("pw,owc->opc", ww, y).reshape(*out, *shape[2:])
+    for _ in range(2):
+        assert torch.equal(T.resize(x, out, "bicubic"), want)
+    xc = x.permute(2, 0, 1)
+    mh = torch.from_numpy(_old_align_corners_matrix(h, out[0]))
+    mw = torch.from_numpy(_old_align_corners_matrix(w, out[1]))
+    want = torch.matmul(torch.matmul(mh, xc), mw.T)
+    for _ in range(2):
+        assert torch.equal(T.resize_align_corners(xc, out), want)
+
+
+def test_a_second_lookup_uploads_nothing(monkeypatch):
+    cpu = torch.device("cpu")
+    args = (97, 31, True, "bicubic")  # a key no other test uses
+    made = []
+
+    def counted(*a):
+        made.append(a)
+        return T.resize_matrix(*a)
+
+    first = T.on_device(counted, args, cpu, torch.float32)
+    assert T.on_device(counted, args, cpu, torch.float32) is first
+    assert made == [args]
+    # held constants answer first, and a holding scope collects what it
+    # reads; the cache is bounded
+    held = {}
+    with T.holding(held):
+        assert T.on_device(counted, args, cpu, torch.float32) is first
+    assert list(held.values()) == [first]
+    for n in range(T.DEVICE_ENTRIES):
+        T.on_device(T.resize_matrix, (200 + n, 7, True, "bilinear"), cpu,
+                    torch.float32)
+    assert made == [args]
+    with T.holding(held):
+        assert T.on_device(counted, args, cpu, torch.float32) is first
+    assert made == [args]
+    again = T.on_device(counted, args, cpu, torch.float32)
+    assert made == [args, args] and torch.equal(again, first)
+
+
+def test_constants_made_under_inference_mode_can_be_saved_for_backward():
+    with torch.inference_mode():
+        m = T.on_device(T.resize_matrix, (53, 29, True, "bilinear"),
+                        torch.device("cpu"), torch.float32)
+    assert not m.is_inference()
+    x = torch.ones(53, 4, 1, requires_grad=True)
+    T.resize(x, (29, 4)).sum().backward()
+    assert x.grad is not None
+
+
+def _depth_counts(est, image, calls=3):
+    """The estimator's maps and each call's ``depth`` span ``graphed``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from inklayer_tpu_torch import spans
+
+    spans.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        maps = [est.infer_image_device(image) for _ in range(calls)]
+    graphed = [r.counts.get("graphed") for r in spans.take()
+               if r.name == "depth"]
+    return maps, graphed
+
+
+def _direct(model, image, cfg=TINY):
+    """The estimator's map computed step by step, eagerly."""
+    from inklayer_tpu_torch.models.depth.dpt import DEPTH_MEAN, DEPTH_STD
+
+    h, w = image.shape[:2]
+    x = (image.float() / 255.0 - torch.tensor(DEPTH_MEAN)) \
+        / torch.tensor(DEPTH_STD)
+    x = T.resize(x, depth_bucket(h, w, cfg), "bicubic")
+    with torch.no_grad():
+        return T.resize_align_corners(model(x[None])[0], (h, w))
+
+
+def test_the_cpu_path_stays_eager_and_unchanged(pair, rng):
+    _, _, tm = pair
+    image = torch.from_numpy((rng.random((100, 130, 3)) * 255).astype(
+        np.uint8))
+    est = DepthEstimator(tm)
+    assert est.replayable()
+    maps, graphed = _depth_counts(est, image)
+    assert graphed == [0, 0, 0]
+    want = _direct(tm, image)
+    assert all(torch.equal(m, want) for m in maps)
+    assert not est._graphs
+
+
+def test_hooks_keep_the_forward_eager(pair):
+    _, _, tm = pair
+    est = DepthEstimator(tm)
+    handle = tm.depth_head.register_forward_pre_hook(lambda *a: None)
+    try:
+        assert not est.replayable()
+    finally:
+        handle.remove()
+    assert est.replayable()
+    handle = torch.nn.modules.module.register_module_forward_hook(
+        lambda *a: None)
+    try:
+        assert not est.replayable()
+    finally:
+        handle.remove()
+    assert est.replayable()
+
+
+def test_a_tp_sharded_model_stays_eager_and_unchanged(rng, tmp_path):
+    """A one-rank tp group (gloo, file rendezvous): every block sharded,
+    the estimator not replayable, its maps the sharded model's own."""
+    import torch.distributed as dist
+
+    from inklayer_tpu_torch.parallel.tp import TPGroup
+
+    image = torch.from_numpy((rng.random((60, 80, 3)) * 255).astype(
+        np.uint8))
+    _, _, tm = depth_pair()
+    est = DepthEstimator(tm)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        tp = TPGroup(dist.group.WORLD, 0, 1)
+        for blk in tm.pretrained.blocks:
+            blk.shard_tp(tp)
+        assert all(blk.tp is tp for blk in tm.pretrained.blocks)
+        assert not est.replayable()
+        maps, graphed = _depth_counts(est, image)
+        assert graphed == [0, 0, 0]
+        want = _direct(tm, image)
+        assert all(torch.equal(m, want) for m in maps)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_an_mlp_sharded_alone_keeps_the_forward_eager(pair):
+    """A tp plan that splits a block's MLP but not its heads leaves
+    ``Block.tp`` None; the MLP's collectives still rule out a replay."""
+    _, _, tm = pair
+    est = DepthEstimator(tm)
+    mlp = tm.pretrained.blocks[0].mlp
+    mlp.tp = object()
+    try:
+        assert not est.replayable()
+    finally:
+        mlp.tp = None
+    assert est.replayable()
+
+
+def test_capture_counts_launches_apart_and_replays_add_them():
+    import threading
+
+    from inklayer_tpu_torch import _kernels
+
+    before = _kernels.launch_counts()
+    with _kernels.captured_launches() as counts:
+        for _ in range(12):
+            _kernels.count_launch("flash_attention", "d64")
+        for _ in range(28):
+            _kernels.count_launch("layernorm")
+        # another thread's launches ran: they count as usual
+        other = threading.Thread(
+            target=_kernels.count_launch, args=("layernorm",))
+        other.start()
+        other.join(timeout=10)
+        assert not other.is_alive()
+        with _kernels.captured_launches() as inner:
+            _kernels.count_launch("mlp_gelu")
+        assert inner == {"mlp_gelu": 1}
+    assert counts == {"flash_attention": 12, "flash_attention/d64": 12,
+                      "layernorm": 28}
+    after = _kernels.launch_counts()
+    assert after["layernorm"] == before["layernorm"] + 1
+    assert {k: v for k, v in after.items() if k != "layernorm"} == \
+        {k: v for k, v in before.items() if k != "layernorm"}
+    for k in range(1, 4):
+        _kernels.add_launches(counts)
+        now = _kernels.launch_counts()
+        for key, n in counts.items():
+            assert now[key] == after.get(key, 0) + k * n, key
+    _kernels.add_launches({"flash_attention/d999": 2})
+    assert _kernels.launch_counts()["flash_attention/d999"] == 2
+    del _kernels.LAUNCHES["flash_attention/d999"]

@@ -641,3 +641,145 @@ def test_bench_workload_launches_its_kernels(gen):
     counts = {k: c for k, c in _kernels.launch_counts().items() if c}
     assert counts == BENCH_LAUNCHES
     assert torch.isfinite(torch.tensor(value))
+
+
+# ---------------------------------------------------------------------------
+# Depth-Anything-V2's forward replayed from a CUDA graph (DepthEstimator)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def depth_model():
+    """Full-width ViT-B (the default DepthConfig) in bf16 on the card:
+    weights N(0, 0.02), biases 0, norm scales and LayerScale 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from inklayer_tpu_torch.models.depth import DepthAnythingV2
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model = DepthAnythingV2().to("cuda").eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * 0.02)
+            else:
+                p.fill_(0.0 if name.endswith("bias") else 1.0)
+    return model.to(torch.bfloat16)
+
+
+def _sketch(seed, hw):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, (*hw, 3), generator=g, device="cuda",
+                         dtype=torch.uint8)
+
+
+def _eager_map(est, image):
+    """The estimator's map with its forward held eager (a hook)."""
+    handle = est.model.register_forward_hook(lambda *a: None)
+    try:
+        assert not est.replayable()
+        return est.infer_image_device(image)
+    finally:
+        handle.remove()
+
+
+@pytest.mark.parametrize("hw", [(750, 750), (750, 1100)])
+def test_depth_graph_replays_the_eager_map_bit_for_bit(gen, depth_model, hw):
+    """518^2 and the (518, 798) bucket (which resamples the position
+    embedding): the eager first call, the capturing second and two
+    replays give one map."""
+    from inklayer_tpu_torch.models.depth import DepthEstimator
+
+    est = DepthEstimator(depth_model)
+    image = _sketch(1, hw)
+    maps = [est.infer_image_device(image) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert maps[0].shape == hw and float(maps[0].abs().max()) > 0
+    for m in maps[1:]:
+        assert torch.equal(m, maps[0])
+    assert torch.equal(_eager_map(est, image), maps[0])
+
+
+def test_depth_graph_replays_count_the_eager_launches(gen, depth_model):
+    from inklayer_tpu_torch.models.depth import DepthEstimator
+
+    est = DepthEstimator(depth_model)
+    image = _sketch(2, (750, 750))
+
+    def counted(calls):
+        before = _kernels.launch_counts()
+        for _ in range(calls):
+            est.infer_image_device(image)
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        return {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+
+    eager = counted(1)
+    assert eager == {"flash_attention": 12, "flash_attention/d64": 12,
+                     "layernorm": 28}
+    assert counted(1) == eager  # the capture and its replay
+    for k in (1, 3):
+        assert counted(k) == {key: k * n for key, n in eager.items()}
+
+
+def test_depth_graph_two_threads_on_two_streams(gen, depth_model):
+    """Two callers on their own threads and streams, each with its own
+    sketch, replay one graph in turns: each gets its own map."""
+    import sys
+    import threading
+
+    from inklayer_tpu_torch.models.depth import DepthEstimator
+
+    est = DepthEstimator(depth_model)
+    images = [_sketch(3, (750, 750)), _sketch(4, (750, 750))]
+    want = [_eager_map(est, im) for im in images]
+    assert not torch.equal(want[0], want[1])
+    for im in images:  # eager, then the capture
+        est.infer_image_device(im)
+    got, errors = [[], []], []
+
+    def caller(i):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(10):
+                    got[i].append(est.infer_image_device(images[i]))
+                stream.synchronize()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    for i in range(2):
+        assert len(got[i]) == 10
+        assert all(torch.equal(m, want[i]) for m in got[i])
+
+
+def test_depth_spans_count_graphed(gen, depth_model):
+    from torch.profiler import ProfilerActivity, profile
+
+    from inklayer_tpu_torch import spans
+    from inklayer_tpu_torch.models.depth import DepthEstimator
+
+    est = DepthEstimator(depth_model)
+    image = _sketch(5, (750, 750))
+    spans.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            est.infer_image_device(image)
+        torch.cuda.synchronize()
+    graphed = [r.counts.get("graphed") for r in spans.take()
+               if r.name == "depth"]
+    assert graphed == [0, 0, 1]

@@ -1,7 +1,8 @@
 """The benchmark's readers of the program's spans (``gpubench/metrics/
-idle_ms.py``, ``host_wait_ms.py``, ``decode_fill.py`` and their shared
-``_program_spans.py``) on synthetic traces and span records, and
-``decode_fill`` on a tiny SAM decode on the CPU."""
+idle_ms.py``, ``host_wait_ms.py``, ``decode_fill.py``,
+``depth_graph_share.py`` and their shared ``_program_spans.py``) on
+synthetic traces and span records, and ``decode_fill`` on a tiny SAM
+decode on the CPU."""
 
 import threading
 import time
@@ -14,6 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gpubench.manifest import Manifest
 from gpubench.metrics import _program_spans, decode_fill, host_wait_ms
+from gpubench.metrics import depth_graph_share
 from gpubench.metrics import idle_ms
 from gpubench.trace import DeviceEvent, Trace
 from inklayer_tpu_torch import spans
@@ -227,3 +229,41 @@ def test_decode_fill_of_a_tiny_sam_decode():
             "segment.decode", "segment.prompts", "segment.decoder",
             "segment.resample", "wait"} <= names
     assert host_wait_ms.read(ctx, {}) > 0
+
+
+@pytest.mark.parametrize("graphed,want", [((1, 1, 1), 1.0),
+                                          ((0, 1, 1), 2 / 3),
+                                          ((0, 0, 0), 0.0)])
+def test_depth_graph_share_of_planted_spans(feed, graphed, want):
+    """Each request's ``depth`` span counts ``graphed``; the share is their
+    sum over the number of ``depth`` spans."""
+    ctx, recs = scenario()
+    for r, g in zip((r for r in recs if r.name == "depth"), graphed):
+        r.counts["graphed"] = g
+    feed(recs)
+    assert depth_graph_share.read(ctx, {}) == pytest.approx(want)
+
+
+def test_depth_graph_share_gives_no_reading_without_its_count(feed):
+    """A program whose ``depth`` spans count no ``graphed`` (one that
+    captures no graph), and a run without a trace, read nothing."""
+    ctx, recs = scenario()
+    feed(recs)
+    assert depth_graph_share.read(ctx, {}) is None
+    ctx, recs = scenario()
+    for r in recs:
+        r.counts["graphed"] = 1
+    feed(recs)
+    ctx.trace = None
+    assert depth_graph_share.read(ctx, {}) is None
+
+
+def test_the_manifest_finds_the_depth_graph_share():
+    m = Manifest()
+    entry = {e["name"]: e for e in m.data["per_layer"]}["depth_graph_share.b4"]
+    assert entry["workloads"] == ["default.models-b4"]
+    assert entry["moves"] == "sketches_per_s"
+    assert (entry["layer"], entry["unit"], entry["better"]) == \
+        ("models", "calls/call", "higher")
+    assert m.reader("depth_graph_share.b4").__file__ == \
+        depth_graph_share.__file__
