@@ -46,18 +46,22 @@ def _nchw(arr: np.ndarray, device) -> torch.Tensor:
 def _to_uint8(out: torch.Tensor) -> np.ndarray:
     """(B, 3, H, W) in [0, 1] -> (B, H, W, 3) uint8 (NaN -> 0, truncating
     as the reference's cast does)."""
-    arr = np.nan_to_num(out.permute(0, 2, 3, 1).float().cpu().numpy())
+    arr = out.permute(0, 2, 3, 1).float()
+    with span("wait"):
+        arr = arr.cpu()
+    arr = np.nan_to_num(arr.numpy())
     return (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
 
 
 @contextlib.contextmanager
-def stage(pipe, key: str):
-    """``with stage(pipe, key):`` an ``inpaint.<key>`` span of a diffusion
-    pipeline, ended by ``pipe._add_time(key, t0)``: a synchronise of the
-    thread's stream and the stage's seconds added to ``pipe.stage_times``
-    (``profiling.device_profile_stages`` splits a traced call there)."""
+def stage(pipe, key: str, **counts):
+    """``with stage(pipe, key):`` an ``inpaint.<key>`` span (with
+    ``counts``) of a diffusion pipeline, ended by ``pipe._add_time(key,
+    t0)``: a synchronise of the thread's stream and the stage's seconds
+    added to ``pipe.stage_times`` (``profiling.device_profile_stages``
+    splits a traced call there)."""
     t0 = time.perf_counter()
-    with span("inpaint." + key):
+    with span("inpaint." + key, **counts):
         yield
         pipe._add_time(key, t0)
 
@@ -82,6 +86,12 @@ class ControlNetInpaintPipeline:
         self.tokenizer = tokenizer or CLIPTokenizer()
         self.scheduler = DPMSolverMultistepScheduler()
         self._text_cache = {}
+        # where a list, each _sample_batch call appends its sampler state
+        # to it: references to the tensors the call made, not copies
+        # (``t``, ``latents``, ``pred`` (the UNet's output over the CFG
+        # batch) and ``eps`` (guided) per step, the final latent last in
+        # ``latents``; step 0's ``unet_in`` and ``control``; ``image``)
+        self.record: Optional[list] = None
         # seconds of the last generate / generate_batch call: encode, loop
         # (the solver steps; "steps" counts them), decode, prepost (the
         # host pre/post-processing of inpaint_fn / inpaint_batch_fn)
@@ -122,16 +132,23 @@ class ControlNetInpaintPipeline:
     @torch.inference_mode()
     def _sample_batch(self, text_emb, images01, masks01, controls, noise,
                       tables, steps: int, guidance: float,
-                      cond_scale: float) -> torch.Tensor:
+                      cond_scale: float,
+                      layers: Optional[int] = None) -> torch.Tensor:
         """B independent layers, one UNet/ControlNet launch per solver
         step; the CFG batch is [uncond x B, cond x B].
 
         images01 (B, 3, H, W) in [0, 1]; masks01 (B, 1, H, W); controls
         (B, 3, H, W) with masked pixels -1; noise (B, C_lat, H/8, W/8);
-        tables from ``solver_tables``.  Returns (B, 3, H, W) in [0, 1]."""
+        tables from ``solver_tables``; ``layers``: how many of the B rows
+        are real (the rest pad a bucket; all where None).  Returns (B, 3,
+        H, W) in [0, 1]."""
         ts, a_t, s_t, c_sample, c_x0, c_d = (np.asarray(t) for t in tables)
         cl = torch.channels_last
         bsz = images01.shape[0]
+        rec = None
+        if self.record is not None:
+            rec = {"t": [], "latents": [], "pred": [], "eps": []}
+            self.record.append(rec)
         self._sync()
         with stage(self, "encode"):
             masked = (images01 * 2.0 - 1.0) * (masks01 < 0.5)
@@ -149,11 +166,12 @@ class ControlNetInpaintPipeline:
             cond2 = torch.cat([controls, controls]).to(self.dtype) \
                 .contiguous(memory_format=cl)
 
-        with stage(self, "loop"):
+        with stage(self, "loop", layers=bsz if layers is None else layers,
+                   slots=bsz):
             latents = noise.float()
             x0_prev = torch.zeros_like(latents)
             for i in range(steps):
-                with span("inpaint.step"):
+                with span("inpaint.step", samples=2 * bsz):
                     lat_in = torch.cat([latents, latents]).to(self.dtype)
                     t_in = torch.full((2 * bsz,), int(ts[i]),
                                       dtype=torch.int32, device=self.device)
@@ -162,10 +180,17 @@ class ControlNetInpaintPipeline:
                         cond2, conditioning_scale=cond_scale)
                     nine = torch.cat([lat_in, extra], dim=1).contiguous(
                         memory_format=cl)
-                    eps = self.unet(nine, t_in, emb, down_residuals=down,
-                                    mid_residual=mid)
-                    eps_u, eps_c = eps[:bsz], eps[bsz:]
+                    pred = self.unet(nine, t_in, emb, down_residuals=down,
+                                     mid_residual=mid)
+                    eps_u, eps_c = pred[:bsz], pred[bsz:]
                     eps = (eps_u + guidance * (eps_c - eps_u)).float()
+                    if rec is not None:
+                        rec["t"].append(t_in)
+                        rec["latents"].append(latents)
+                        rec["pred"].append(pred)
+                        rec["eps"].append(eps)
+                        if i == 0:
+                            rec["unet_in"], rec["control"] = nine, cond2
                     x0 = (latents - float(s_t[i]) * eps) / float(a_t[i])
                     latents = (float(c_sample[i]) * latents
                                + float(c_x0[i]) * x0
@@ -176,6 +201,9 @@ class ControlNetInpaintPipeline:
         with stage(self, "decode"):
             out = self.vae.decode(latents.contiguous(memory_format=cl))
             out = torch.clamp(out.float() * 0.5 + 0.5, 0.0, 1.0)
+        if rec is not None:
+            rec["latents"].append(latents)
+            rec["image"] = out
         return out
 
     def _sample(self, text_emb, image01, mask01, control_img, noise, tables,
@@ -276,7 +304,7 @@ class ControlNetInpaintPipeline:
                     _nchw(mask01[rows], self.device),
                     _nchw(control, self.device),
                     noise1.expand(bucket, -1, -1, -1), tables, steps,
-                    guidance, cscale)
+                    guidance, cscale, layers=len(idxs))
                 arr = _to_uint8(out)
                 for k, i in enumerate(idxs):
                     out_all[i] = Image.fromarray(arr[k])

@@ -44,8 +44,11 @@ The names in use:
 
 Counts: ``images`` (``detect``, ``segment.encode``), ``boxes`` (detections
 kept, on ``detect``; real prompts, on ``segment.decode``), ``slots`` (the
-prompt capacity decoded, on ``segment.decode``), ``layers`` (on
-``inpaint.inpaint``).
+prompt capacity decoded, on ``segment.decode``; the layer bucket sampled,
+on ``inpaint.loop``), ``layers`` (on ``inpaint.inpaint``; the real layers
+of the bucket, on ``inpaint.loop``), ``samples`` (the batch of one solver
+step's UNet and ControlNet, two per slot for the guidance, on
+``inpaint.step``).
 """
 
 from __future__ import annotations
